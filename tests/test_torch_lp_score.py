@@ -1,7 +1,7 @@
 """Port parity for the dense refinement: the plain lp_score_rows against the
 Pallas kernel (interpret mode), node scores, eligibility, the threefry
 draws against jax.random, and whole dense rounds against the JAX round.
-One test needs a CUDA device (kernel against plain version on the card)."""
+The kernel itself is tested on the card by tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -145,32 +145,3 @@ def test_dense_rounds_converge():
     for r in range(8):
         lab = lp_refine_dense_round(g, lab, 2, L, seed=r, device="cpu")
     assert int((lab != truth).sum()) < before / 3
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_card():
-    """The CUDA kernel against its plain version on the card: exact on
-    integral weights, rtol=1e-5 on float weights (atomics reorder sums)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    for (r, w, k, integral) in ((4096, 128, 16, True), (1003, 37, 5, False),
-                                (512, 128, 300, False)):
-        lbl = torch.randint(-1, k + 2, (r, w), generator=gen, device="cuda",
-                            dtype=torch.int32)
-        wt = (torch.randint(0, 4, (r, w), generator=gen, device="cuda").float()
-              if integral else torch.rand((r, w), generator=gen, device="cuda"))
-        before = lp_score_rows.launches
-        got = lp_score_rows(lbl, wt, k)
-        torch.cuda.synchronize()
-        assert lp_score_rows.launches == before + 1
-        want = lp_score_rows_ref(lbl, wt, k)
-        if integral:
-            assert torch.equal(got, want)
-        else:
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    with pytest.raises(ValueError):
-        lp_score_rows(lbl, wt.cpu(), k)
-    with pytest.raises(TypeError):
-        lp_score_rows(lbl.long(), wt, k)
