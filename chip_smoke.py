@@ -8,12 +8,16 @@ Phases, each of which fails the run:
 2. hold each kernel against its plain PyTorch version on the card (exact on
    integral weights at the dense path's finest shape, ``rtol=1e-5`` on
    float weights at small ragged shapes) and time both with CUDA events;
+   The batched dense round must equal its one-row rounds on the card;
 3. check on a small graph that ``partition()`` on the card returns the same
-   labels as the port's CPU path (plain versions instead of kernels);
-4. drive ``partition()`` end to end — ``rmat(20, 16)`` without its
-   isolated nodes, at k=16, with dense refinement and the host GA —
-   counting the kernel's launches, and check the result is feasible and
-   beats a hash partition;
+   labels as the port's CPU path (plain versions instead of kernels), once
+   with the host GA and once with the default ``evo_engine`` (the batched
+   GA);
+4. drive ``partition()`` end to end on ``rmat(19, 16)`` without its
+   isolated nodes, at k=16, with dense refinement: first with the default
+   ``evo_engine``, whose coarsest stage must run the batched GA on the card
+   in both V-cycles, then with the host GA.  Each run counts the kernel's
+   launches from zero and must be feasible and beat a hash partition;
 5. time each kernel and its plain version on the main path's own input
    (the finest level's ELL pack with the run's labels) and print one JSON
    line with each kernel's numbers and, last, the device line.
@@ -21,7 +25,7 @@ Phases, each of which fails the run:
 Run from the repository root:  python3 chip_smoke.py
 (``--scale``/``--edge-factor`` shrink the end-to-end graph for quick runs).
 Without a CUDA device, or outside a checkout, it exits non-zero and prints
-no result.  The span trace of phase 4 goes to ``chiprun_out/``.
+no result.  The span traces of phase 4 go to ``chiprun_out/``.
 """
 
 from __future__ import annotations
@@ -159,23 +163,80 @@ def path_lp_score_rows(torch, g, labels: "np.ndarray", k: int) -> dict:
     return m
 
 
+def check_dense_round_batched(torch, g, k: int, B: int = 4) -> None:
+    """Phase 2 for the batched dense round: ``B`` label rows on the finest
+    level's ELL pack, scored with one kernel launch, must equal ``B``
+    one-row rounds with the same seeds (integral weights: exact)."""
+    import numpy as np
+    from repro_torch.graph import ell_pack, pow2
+    from repro_torch.kernels.lp_score import (
+        dense_round_device,
+        dense_round_device_batched,
+        lp_score_rows,
+    )
+
+    ell = ell_pack(g)
+    Rb = pow2(ell.rows)
+    dev = torch.device("cuda")
+    dst = torch.full((Rb, ell.width), g.n, dtype=torch.int64, device=dev)
+    dst[: ell.rows] = torch.from_numpy(ell.dst).to(dev)
+    w = torch.zeros((Rb, ell.width), dtype=torch.float32, device=dev)
+    w[: ell.rows] = torch.from_numpy(ell.w).to(dev)
+    row_node = torch.full((Rb,), g.n, dtype=torch.int64, device=dev)
+    row_node[: ell.rows] = torch.from_numpy(ell.row_node).to(dev)
+    nb = pow2(g.n + 1)
+    lab = np.full((B, nb), k, np.int32)
+    lab[:, : g.n] = np.random.default_rng(5).integers(0, k, (B, g.n))
+    labs = torch.from_numpy(lab).to(dev)
+    nw = torch.zeros(nb, dtype=torch.float32, device=dev)
+    nw[: g.n] = torch.from_numpy(g.nw).to(dev)
+    U = float(np.ceil(g.nw.sum() / k) * 1.03)
+    seeds = [11 + b for b in range(B)]
+    before = lp_score_rows.launches
+    got = dense_round_device_batched(dst, w, row_node, labs, nw, U, seeds, 0.5, g.n, k=k)
+    torch.cuda.synchronize()
+    if lp_score_rows.launches != before + 1:
+        _fail("the batched dense round did not score its rows with one launch")
+    moved = 0
+    for b in range(B):
+        one = dense_round_device(dst, w, row_node, labs[b], nw, U, seeds[b], 0.5, g.n, k=k)
+        if not torch.equal(got[b], one):
+            _fail(f"batched dense round row {b} differs from its one-row round: "
+                  f"{int((got[b] != one).sum())} labels")
+        moved += int((got[b, : g.n] != labs[b, : g.n]).sum())
+    if moved == 0:
+        _fail("the batched dense round moved no node")
+    print(f"dense_round_device_batched ({B} x {Rb}x{ell.width}, k={k}): one launch, "
+          f"every row == its one-row round, {moved} moves", flush=True)
+    del dst, w, labs, got
+    torch.cuda.empty_cache()
+
+
 def check_small_parity(torch) -> None:
     """Phase 3: on a small integral graph the card's path (kernel, device
-    sorts and atomics) must give the CPU path's labels exactly."""
+    sorts and atomics) must give the CPU path's labels exactly, with the
+    host GA and with the default ``evo_engine`` (the batched GA)."""
     from repro_torch.core import PartitionerConfig, partition
     from repro_torch.graph import rmat
 
     g = rmat(12, 8, seed=3)
-    cfg = dict(k=8, preset="fast", refine_engine="dense", evo_engine="host",
-               coarsest_factor=40, dense_min_n=256, numpy_below=256, seed=0)
-    on_card = partition(g, PartitionerConfig(**cfg), device="cuda")
-    on_cpu = partition(g, PartitionerConfig(**cfg), device="cpu")
-    if on_card.engine_stats["dense_rounds"] == 0:
-        _fail("small parity run made no dense rounds")
-    if not (on_card.labels == on_cpu.labels).all() or on_card.cut != on_cpu.cut:
-        _fail(f"card and CPU partitions differ: cut {on_card.cut} vs {on_cpu.cut}")
-    print(f"small parity rmat(12, 8) k=8: card == cpu, cut {on_card.cut}, "
-          f"levels {on_card.level_sizes}", flush=True)
+    base = dict(k=8, preset="fast", refine_engine="dense", coarsest_factor=40,
+                dense_min_n=256, numpy_below=256, seed=0)
+    for evo in ("host", "auto"):
+        cfg = dict(base, evo_engine=evo)
+        on_card = partition(g, PartitionerConfig(**cfg), device="cuda")
+        on_cpu = partition(g, PartitionerConfig(**cfg), device="cpu")
+        st = on_card.engine_stats
+        if st["dense_rounds"] == 0:
+            _fail(f"small parity run (evo_engine={evo}) made no dense rounds")
+        if (st["evo_calls"] > 0) != (evo == "auto"):
+            _fail(f"small parity run (evo_engine={evo}): evo_calls {st['evo_calls']}")
+        if not (on_card.labels == on_cpu.labels).all() or on_card.cut != on_cpu.cut:
+            _fail(f"card and CPU partitions differ (evo_engine={evo}): "
+                  f"cut {on_card.cut} vs {on_cpu.cut}")
+        print(f"small parity rmat(12, 8) k=8 evo_engine={evo}: card == cpu, "
+              f"cut {on_card.cut}, evo_calls {st['evo_calls']}, "
+              f"levels {on_card.level_sizes}", flush=True)
 
 
 def drop_isolated(g):
@@ -212,18 +273,20 @@ def make_graph(scale: int, edge_factor: int):
     return g
 
 
-def run_partition(torch, g, out_dir: Path) -> dict:
-    """Phase 4: the port's main path end to end; returns launch counts."""
+def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
+    """Phase 4: the port's main path end to end with the given GA engine;
+    the kernel's launch count is set to 0 just before and read just
+    after."""
     from repro_torch.core import PartitionerConfig, partition
     from repro_torch.core.metrics import cut_np
     from repro_torch.kernels.lp_score import lp_score_rows
     from repro_torch.obs import Tracer, set_tracer
     cfg = PartitionerConfig(k=16, preset="fast", refine_engine="dense",
-                            evo_engine="host", coarsest_factor=100, seed=0)
+                            evo_engine=evo_engine, coarsest_factor=100, seed=0)
     tracer = Tracer()
     set_tracer(tracer)
-    lp_score_rows.launches = 0
     torch.cuda.synchronize()
+    lp_score_rows.launches = 0
     t = time.perf_counter()
     rep = partition(g, cfg)
     torch.cuda.synchronize()
@@ -234,16 +297,18 @@ def run_partition(torch, g, out_dir: Path) -> dict:
     k = cfg.k
     hash_lab = ((torch.arange(g.n, dtype=torch.int64) * 2654435761) % (1 << 32) % k).numpy()
     hash_cut = cut_np(g, hash_lab)
-    print(f"partition: {wall:.3f} s wall ({rep.seconds:.3f} s in partition), "
+    tag = f"[evo_engine={evo_engine}]"
+    print(f"{tag} partition: {wall:.3f} s wall ({rep.seconds:.3f} s in partition), "
           f"cut {rep.cut} ({rep.cut / hash_cut:.4f} of hash cut {hash_cut}), "
           f"imbalance {rep.imbalance:.5f}, feasible {rep.feasible}", flush=True)
-    print(f"level_sizes {rep.level_sizes}", flush=True)
-    print(f"cycle_cuts {rep.cycle_cuts}", flush=True)
-    print(f"engine_stats {json.dumps(rep.engine_stats)}", flush=True)
-    print(f"lp_score_rows launches {launches}", flush=True)
+    print(f"{tag} level_sizes {rep.level_sizes}", flush=True)
+    print(f"{tag} cycle_cuts {rep.cycle_cuts}", flush=True)
+    print(f"{tag} engine_stats {json.dumps(rep.engine_stats)}", flush=True)
+    print(f"{tag} lp_score_rows launches {launches}", flush=True)
 
     # where the time went, by span (spans do not nest on this path)
     groups = {}
+    evolves = []
     for ev in tracer.events:
         a = ev.get("args", {})
         if ev["name"] == "vcycle.pack":
@@ -251,29 +316,38 @@ def run_partition(torch, g, out_dir: Path) -> dict:
                 "pack.ell" if a.get("mode") == "ell" else "pack.gather")
         elif ev["name"] == "vcycle.sweep":
             key = f"sweep.{a.get('mode')}"
+        elif ev["name"] == "vcycle.evolve":
+            key = f"evolve.{a.get('engine')}"
+            evolves.append((a.get("engine"), a.get("n"), ev["dur"] / 1e6))
         else:
             key = ev["name"].split(".", 1)[1]
         groups[key] = groups.get(key, 0.0) + ev["dur"] / 1e6
     groups["other"] = rep.seconds - sum(groups.values())
-    print("breakdown_s " + json.dumps({k_: round(v, 4) for k_, v in sorted(groups.items())}),
+    print(f"{tag} breakdown_s " + json.dumps({k_: round(v, 4) for k_, v in sorted(groups.items())}),
           flush=True)
+    print(f"{tag} evolve spans (engine, coarsest n, s): {evolves}", flush=True)
     out_dir.mkdir(parents=True, exist_ok=True)
-    tracer.export_chrome(str(out_dir / "chip_smoke_trace.json"))
+    tracer.export_chrome(str(out_dir / f"chip_smoke_trace_{evo_engine}.json"))
 
     if not rep.feasible or rep.imbalance > cfg.eps + 1e-9:
-        _fail(f"infeasible partition: imbalance {rep.imbalance}")
+        _fail(f"{tag} infeasible partition: imbalance {rep.imbalance}")
     if not rep.cut < hash_cut:
-        _fail(f"cut {rep.cut} not below the hash partition's {hash_cut}")
+        _fail(f"{tag} cut {rep.cut} not below the hash partition's {hash_cut}")
     if launches <= 0:
-        _fail("the main path never launched lp_score_rows")
+        _fail(f"{tag} the main path never launched lp_score_rows")
     if launches != rep.engine_stats["dense_rounds"]:
-        _fail(f"{launches} launches for {rep.engine_stats['dense_rounds']} dense rounds")
-    return rep, {"lp_score_rows": launches}
+        _fail(f"{tag} {launches} launches for {rep.engine_stats['dense_rounds']} dense rounds")
+    want_engine = "host" if evo_engine == "host" else "device"
+    if len(evolves) != cfg.vcycles or any(e[0] != want_engine for e in evolves):
+        _fail(f"{tag} want the {want_engine} GA in all {cfg.vcycles} V-cycles, "
+              f"got {evolves}")
+    return dict(rep=rep, launches=launches, wall=wall,
+                evolve_s=sum(e[2] for e in evolves), evolves=evolves)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--scale", type=int, default=20)
+    ap.add_argument("--scale", type=int, default=19)
     ap.add_argument("--edge-factor", type=int, default=16)
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"))
     args = ap.parse_args(argv)
@@ -313,12 +387,22 @@ def main(argv=None) -> int:
     g = make_graph(args.scale, args.edge_factor)
     rows = plan_ell_rows(g.indptr, g.n)[0].shape[0]
     check_lp_score_rows(torch, dev, R=pow2(rows), W=128, k=16)
+    check_dense_round_batched(torch, g, k=16)
 
-    # ---- phase 3: card vs CPU on a small graph
+    # ---- phase 3: card vs CPU on a small graph, host GA and batched GA
     check_small_parity(torch)
 
-    # ---- phase 4: the main path, launch counts read around it
-    rep, counts = run_partition(torch, g, Path(args.out))
+    # ---- phase 4: the main path with the batched GA (this slice's path),
+    # then the host GA (the earlier path), launch counts read around each
+    print(f"edge-weight sum {float(g.ew.sum())} (the batched GA needs < 2^24 = "
+          f"{2**24}), node-weight sum {float(g.nw.sum())}", flush=True)
+    runs = {evo: run_partition(torch, g, Path(args.out), evo) for evo in ("auto", "host")}
+    print("device GA vs host GA: " + json.dumps({
+        evo: dict(wall_s=round(r["wall"], 3), partition_s=round(r["rep"].seconds, 3),
+                  cut=r["rep"].cut, evolve_s=round(r["evolve_s"], 4),
+                  launches=r["launches"])
+        for evo, r in runs.items()}), flush=True)
+    rep = runs["auto"]["rep"]
 
     # ---- phase 5: the kernels' numbers on the main path's own input
     m = path_lp_score_rows(torch, g, rep.labels, k=16)
@@ -327,7 +411,7 @@ def main(argv=None) -> int:
         route="cuda",
         source="src/repro_torch/kernels/lp_score/lp_score_rows.cu",
         replaces="src/repro/kernels/lp_score/lp_score.py:61",
-        launches=counts["lp_score_rows"],
+        launches=runs["auto"]["launches"],
         max_abs_err=m["max_abs_err"],
         ms=m["ms"],
         plain_ms=m["plain_ms"],

@@ -21,6 +21,11 @@ torch twin of ``repro.core.engine.LPEngine``):
   the device (:func:`~repro_torch.core.contraction.contract_device`); the
   coarse :class:`~repro_torch.graph.csr.GraphDev` feeds the next level's
   pack gather directly, and only four scalars cross to the host per level.
+* **Batched evolution** — ``evolve_device`` runs the island GA of
+  :mod:`~repro_torch.core.evo_device` on the coarsest graph's cached pack
+  and arc tensors (a resident GraphDev is never materialized), gated by
+  ``can_evolve_device``; ``evolve_oracle`` runs its numpy oracle on the
+  same inputs.
 
 Every tensor lives on ``device`` (CUDA unless the caller asks for the
 CPU).  Engine state is per run; it is not thread-safe.
@@ -51,6 +56,8 @@ from ..kernels.lp_score.ops import dense_round_device
 from ..obs import RegistryBackedStats
 from ..obs import span as _obs_span
 from .contraction import CoarseMap, contract_device, packed_key_wbits
+from .evo_device import EvoGraph, best_row, evo_generation_step, evo_seed_step
+from .evolutionary import EvoInputs, evolve_batched_numpy, grow_rounds_bound
 from .label_propagation import lp_sweep, make_order
 from .metrics import cut_from_arcs
 
@@ -104,6 +111,7 @@ class EngineStats(RegistryBackedStats):
         "pack_hits",
         "dense_rounds",
         "contract_calls",
+        "evo_calls",            # batched GA steps (seed + generations)
         "gather_builds",        # device pack gathers (GraphDev levels)
         "h2d_bytes",            # host->device uploads the engine issued
         "d2h_bytes",            # device->host downloads (scalars + lazy
@@ -162,6 +170,7 @@ class LPEngine:
         self._arenas: Dict[int, _Arena] = {}
         self._ells: Dict[int, _DeviceEll] = {}
         self._cin: Dict[int, tuple] = {}    # padded contraction inputs (GraphNP)
+        self._degs: Dict[int, tuple] = {}   # (graph, (Ab,) f32 degrees) for the GA
         self._iota_cache: Optional[torch.Tensor] = None
         self._exact_weights: Optional[bool] = None  # lazily scanned from g0
 
@@ -359,6 +368,7 @@ class LPEngine:
         self._arenas = {k: v for k, v in self._arenas.items() if k in keep_ids}
         self._ells = {k: v for k, v in self._ells.items() if k in keep_ids}
         self._cin = {k: v for k, v in self._cin.items() if k in keep_ids}
+        self._degs = {k: v for k, v in self._degs.items() if k in keep_ids}
 
     # ------------------------------------------------------------------ sweeps
 
@@ -498,6 +508,102 @@ class LPEngine:
                     and float(g.nw.sum()) < 2**24
                 )
         return self._exact_weights
+
+    # ---------------------------------------------------------- evolutionary
+
+    def _deg_f(self, g: AnyGraph, Ab: int) -> torch.Tensor:
+        """(Ab,) float32 degrees (0 beyond n), uploaded once per graph."""
+        hit = self._degs.get(id(g))
+        if hit is not None and hit[0] is g and hit[1].shape[0] == Ab:
+            return hit[1]
+        deg = np.zeros(Ab, np.float32)
+        deg[: g.n] = g.degrees()
+        t = _upload(deg, self.device)
+        self.stats.h2d_bytes += deg.nbytes
+        self._degs[id(g)] = (g, t)
+        return t
+
+    def can_evolve_device(self, g: AnyGraph, k: int, islands: int, pop: int) -> bool:
+        """The reference's gate for the batched GA: exact weights, overlay
+        keys that fit int32, and (Sb, Ab, Kb) score tensors of at most
+        2^28 bytes."""
+        n = g.n
+        if n < 1 or k < 1 or k * (k + 1) >= 2**31:
+            return False
+        if pow2(max(islands * pop, 1)) * pow2(n + 1) * pow2(k + 1) * 4 > 2**28:
+            return False
+        return self._weights_exact()
+
+    def _evo_arrays(self, g: AnyGraph):
+        """(pack, arena, Ab) of one evolution run: the cached "random" pack
+        (shared with refine sweeps), so the graph uploads once per run."""
+        return self._pack(g, "random"), self._arena(g), pow2(g.n + 1)
+
+    def evolve_device(self, g: AnyGraph, cfg, shard: bool = False) -> torch.Tensor:
+        """Batched island GA; returns the best partition of ``g`` as an (n,)
+        int32 tensor on the engine's device, bit-identical to
+        :meth:`evolve_oracle` under the same config on integral weights.
+
+        ``shard=True`` asks for islands spread over several devices; with
+        one device the single-device loop runs, as in the reference."""
+        n, k = g.n, cfg.k
+        I, P, G = cfg.islands, cfg.pop_per_island, cfg.generations
+        Kb, Sb, Ib = pow2(k + 1), pow2(I * P), pow2(I)
+        D = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        if shard and G > 0 and D > 1 and I % D == 0:
+            raise NotImplementedError(
+                "evo_shard_islands over several GPUs belongs to the distributed "
+                "slice of the port, which is not ported yet"
+            )
+        dp, ar, Ab = self._evo_arrays(g)
+        EG = EvoGraph(
+            pack=(dp.nodes, dp.node_valid, dp.edge_dst, dp.edge_w,
+                  dp.edge_src_slot, dp.edge_valid),
+            num_chunks=dp.num_chunks, src=ar.src, dst=ar.dst, ew=ar.ew,
+            nw=ar.nw_arena[:Ab], deg_f=self._deg_f(g, Ab), n=n, k=k, Kb=Kb,
+            Lmax=float(np.float32(cfg.Lmax)), seed=int(cfg.seed) & 0x7FFFFFFF,
+            refine_iters=cfg.refine_iters,
+        )
+        seed_lab = np.full((Sb, Ab), k, np.int32)
+        seed_mask = np.zeros(Sb, bool)
+        if cfg.seed_individuals:
+            for isl in range(I):
+                seed_lab[isl * P, :n] = np.asarray(
+                    cfg.seed_individuals[isl % len(cfg.seed_individuals)][:n],
+                    dtype=np.int32,
+                )
+                seed_mask[isl * P] = True
+        self.stats.h2d_bytes += seed_lab.nbytes + seed_mask.nbytes
+        self.stats.evo_calls += 1
+        labs, keys = evo_seed_step(
+            EG, _upload(seed_lab, self.device, torch.int64),
+            _upload(seed_mask, self.device), I, P, grow_rounds_bound(n, k, g.m),
+        )
+        for gen in range(G):
+            self.stats.evo_calls += 1
+            labs, keys = evo_generation_step(EG, labs, keys, gen, 0, I, P, Ib)
+        bidx, _ = best_row(labs, keys, I * P)
+        return labs[bidx][:n].to(torch.int32)
+
+    def evolve_oracle(self, g: AnyGraph, cfg, trace=None) -> np.ndarray:
+        """The sequential numpy oracle on the same pack and arc tensors the
+        batched GA reads (the parity reference)."""
+        dp, ar, Ab = self._evo_arrays(g)
+        deg = np.zeros(Ab, np.int32)
+        deg[: g.n] = g.degrees()
+
+        def host(t):
+            return t.cpu().numpy()
+
+        inp = EvoInputs(
+            nodes=host(dp.nodes), node_valid=host(dp.node_valid),
+            edge_dst=host(dp.edge_dst), edge_w=host(dp.edge_w),
+            edge_src_slot=host(dp.edge_src_slot), edge_valid=host(dp.edge_valid),
+            num_chunks=dp.num_chunks,
+            src=host(ar.src), dst=host(ar.dst), ew=host(ar.ew),
+            nw=host(ar.nw_arena[:Ab]), deg=deg, n=g.n,
+        )
+        return evolve_batched_numpy(inp, cfg, trace=trace)
 
     # ------------------------------------------------------------ contraction
 
@@ -641,6 +747,7 @@ class LPEngine:
             pack_hits=self.stats.pack_hits,
             dense_rounds=self.stats.dense_rounds,
             contract_calls=self.stats.contract_calls,
+            evo_calls=self.stats.evo_calls,
             contract_bucket_count=self.stats.contract_bucket_count,
             gather_builds=self.stats.gather_builds,
             h2d_bytes=self.stats.h2d_bytes,

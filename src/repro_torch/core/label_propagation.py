@@ -7,9 +7,12 @@ Two modes (paper §III-A), as in ``repro.core.label_propagation``:
 * ``refine`` — local search.  Labels live in ``[0, k)``, ``U = L_max``, and
   nodes of an overloaded block must leave it; random traversal.
 
-:func:`lp_sweep` is the chunked-sequential sweep in torch: a Python loop
-walks the chunks of a pack in order and moves the nodes of one chunk
-synchronously.  It makes exactly the reference's move decisions:
+:func:`lp_sweep_batched` is the chunked-sequential sweep in torch: a Python
+loop walks the chunks of a pack in order and moves the nodes of one chunk
+synchronously, for a batch of ``B`` label rows at once (row ``b`` visits
+the chunks in the order its own seed draws; the batched GA refines its
+whole population this way).  :func:`lp_sweep` is its one-row case.  Each
+row makes exactly the reference's move decisions:
 
 * the per-chunk (node, label) run reduction sorts the fused key
   ``slot * A + cand`` with a *stable* sort (``torch.sort`` is unstable by
@@ -18,9 +21,9 @@ synchronously.  It makes exactly the reference's move decisions:
 * tie-break jitter and the influx gate are stateless uint32 hashes of
   integer coordinates.  Torch on the CPU has no uint32 right shift, so the
   murmur mixer runs in int64 with every product reduced mod 2^32;
-* the reference's ``mode="drop"`` scatters become index adds whose
-  out-of-range indices are masked explicitly (torch raises on them), and
-  its scatter max/min are ``scatter_reduce(..., include_self=True)``.
+* the reference's ``mode="drop"`` scatters become row-wise scatter adds
+  whose out-of-range indices are masked explicitly (torch raises on them),
+  and its scatter max/min are ``scatter_reduce(..., include_self=True)``.
 
 The numpy host code (:func:`make_order`, :func:`sclap_numpy`,
 :func:`sweep_refine_numpy` and the ``hash_*_np`` family) is a copy of the
@@ -30,7 +33,7 @@ reference's.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -44,6 +47,7 @@ __all__ = [
     "lp_cluster",
     "lp_refine",
     "lp_sweep",
+    "lp_sweep_batched",
     "make_order",
     "sclap_numpy",
     "hash_mix",
@@ -90,11 +94,13 @@ def _mulmod32(h: torch.Tensor, c: int) -> torch.Tensor:
     return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _M32
 
 
-def hash_mix(h: Union[int, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+def hash_mix(h: Union[int, torch.Tensor], x: Union[int, torch.Tensor]):
     """One round of the murmur-style mixer; ``x`` is cast like a uint32
-    (negative int32 values wrap), the result is an int64 tensor holding
-    uint32 values."""
-    h = _mulmod32(h ^ (x.to(torch.int64) & _M32), _MIX)
+    (negative int32 values wrap).  On tensors the result is an int64 tensor
+    holding uint32 values; on two python ints, a python int."""
+    if isinstance(x, torch.Tensor):
+        x = x.to(torch.int64)
+    h = _mulmod32(h ^ (x & _M32), _MIX)
     return h ^ (h >> 15)
 
 
@@ -111,11 +117,12 @@ def hash_jitter(base: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def _add_at(target: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """In-place ``target[idx] += val`` dropping out-of-range indices (the
-    reference's ``.at[].add(mode="drop")``; a dropped entry adds 0 at 0)."""
-    ok = (idx >= 0) & (idx < target.shape[0])
-    return target.index_add_(0, torch.where(ok, idx, 0), torch.where(ok, val, 0.0))
+def _add_rows(target: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """In-place ``target[b, idx[b, i]] += val[b, i]`` dropping out-of-range
+    indices (the reference's ``.at[].add(mode="drop")``; a dropped entry
+    adds 0 at 0)."""
+    ok = (idx >= 0) & (idx < target.shape[-1])
+    return target.scatter_add_(-1, torch.where(ok, idx, 0), torch.where(ok, val, 0.0))
 
 
 def _chunk_perm(seed: int, C: int, num_chunks: int) -> np.ndarray:
@@ -130,19 +137,19 @@ def _chunk_perm(seed: int, C: int, num_chunks: int) -> np.ndarray:
     return np.argsort(hc, kind="stable")
 
 
-def lp_sweep(
+def lp_sweep_batched(
     nodes: torch.Tensor,          # (C, N) int64, padded with n
     node_valid: torch.Tensor,     # (C, N) bool
     edge_dst: torch.Tensor,       # (C, E) int64, padded with n
     edge_w: torch.Tensor,         # (C, E) float32
     edge_src_slot: torch.Tensor,  # (C, E) int64
     edge_valid: torch.Tensor,     # (C, E) bool
-    labels: torch.Tensor,         # (A,) int32 arena, A >= n + 1
-    weights: torch.Tensor,        # (W,) float32; slots >= num_labels hold +inf
+    labels: torch.Tensor,         # (B, A) integer arena rows, A >= n + 1
+    weights: torch.Tensor,        # (B, W) float32; slots >= num_labels hold +inf
     nw_ext: torch.Tensor,         # (A,) float32 node weights; 0 beyond n
     restrict: torch.Tensor,       # (A,) int32, or a (1,) dummy
     U: float,
-    seed: int,                    # drives the stateless tie-break hash
+    seeds: Sequence[int],         # one per row: drives that row's hashes
     num_labels: int,              # T: n in cluster mode, k in refine mode
     num_chunks: int,              # live chunks; <= C (the rest is padding)
     *,
@@ -151,62 +158,88 @@ def lp_sweep(
     use_restrict: bool,
     permute_chunks: bool,
 ):
-    """``iters`` sweeps over the live chunks; returns ``(labels, weights,
-    moves)`` (new tensors — the inputs are not modified)."""
+    """``iters`` sweeps over the live chunks for each of ``B`` label rows;
+    returns ``(labels, weights, moves)`` with ``moves`` per row (new
+    tensors — the inputs are not modified).  Rows share the pack and the
+    node weights and are otherwise independent: at step ``c`` row ``b``
+    moves the nodes of chunk ``perm_b[c]``, and every sort, reduction and
+    scatter runs along the row axis, so one step costs the same launches
+    for the whole batch."""
     dev = labels.device
+    B, A = labels.shape
     C, N = nodes.shape
-    A = labels.shape[0]
     T = int(num_labels)
-    seed = int(seed) & _M32
+    seeds = [int(s) & _M32 for s in seeds]
     U = torch.tensor(float(np.float32(U)), dtype=torch.float32, device=dev)
     labels = labels.clone()
     weights = weights.clone()
-    moves = torch.zeros((), dtype=torch.int64, device=dev)
-    perm = _chunk_perm(seed, C, num_chunks) if permute_chunks else np.arange(C)
-    for it in range(iters):
-        base_jit = hash_base_u32(seed, it, 0x51ED2701)
-        base_gate = hash_base_u32(seed, it, 0x2545F491)
-        for c in range(num_chunks):
-            cc = int(perm[c])
-            nd = nodes[cc]
-            ndv = node_valid[cc]
-            dst = edge_dst[cc]
-            slot = edge_src_slot[cc]
+    moves = torch.zeros(B, dtype=torch.int64, device=dev)
+    if permute_chunks:
+        perm = np.stack([_chunk_perm(s, C, num_chunks) for s in seeds])
+    else:
+        perm = np.broadcast_to(np.arange(C), (B, C))
+    perm = np.array(perm[:, :num_chunks])
+    # rows that visit one chunk per step read views of it; otherwise each
+    # row gathers its own chunk
+    shared = bool((perm == perm[:1]).all())
+    perm_t = None if shared else torch.from_numpy(perm).to(dev)
 
-            ok = edge_valid[cc]
+    def bases(extra):
+        """(iters, B, num_chunks) hash bases: the row's per-iteration base
+        plus the chunk id, as the reference adds them."""
+        b = np.array([[hash_base_u32(s, it, extra) for s in seeds]
+                      for it in range(iters)], dtype=np.int64)
+        return torch.from_numpy((b[:, :, None] + perm[None]) & _M32).to(dev)
+
+    base_jit = bases(0x51ED2701)
+    base_gate = bases(0x2545F491) if refine_mode else None
+    for it in range(iters):
+        for c in range(num_chunks):
+            if shared:
+                cc = int(perm[0, c])
+                nd, ndv, dst, ew, slot, ok = (
+                    t[cc].expand(B, -1) for t in
+                    (nodes, node_valid, edge_dst, edge_w, edge_src_slot, edge_valid)
+                )
+            else:
+                cc = perm_t[:, c]
+                nd, ndv, dst, ew, slot, ok = (
+                    t[cc] for t in
+                    (nodes, node_valid, edge_dst, edge_w, edge_src_slot, edge_valid)
+                )
             if use_restrict:
-                ok = ok & (restrict[dst] == restrict[nd[slot]])
-            cand = torch.where(ok, labels[dst].to(torch.int64), T)
-            wv = torch.where(ok, edge_w[cc], 0.0)
+                ok = ok & (restrict[dst] == restrict[nd.gather(1, slot)])
+            cand = torch.where(ok, labels.gather(1, dst).to(torch.int64), T)
+            wv = torch.where(ok, ew, 0.0)
 
             # ---- sort-based (node, label) run reduction: slots are grouped
             # in the pack, so the fused key orders runs like lexsort
-            key, perm_e = torch.sort(slot * A + cand, stable=True)
-            s_w = wv[perm_e]
+            key, perm_e = torch.sort(slot * A + cand, dim=-1, stable=True)
+            s_w = wv.gather(1, perm_e)
             new_run = torch.ones_like(key, dtype=torch.bool)
-            new_run[1:] = key[1:] != key[:-1]
-            run_id = torch.cumsum(new_run, 0) - 1
-            E = key.shape[0]
-            run_w = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
-                0, run_id, s_w
+            new_run[:, 1:] = key[:, 1:] != key[:, :-1]
+            run_id = torch.cumsum(new_run, 1) - 1
+            E = key.shape[1]
+            run_w = torch.zeros((B, E), dtype=torch.float32, device=dev).scatter_add_(
+                1, run_id, s_w
             )
-            run_slot = torch.full((E,), N, dtype=torch.int64, device=dev).scatter_(
-                0, run_id, key // A
+            run_slot = torch.full((B, E), N, dtype=torch.int64, device=dev).scatter_(
+                1, run_id, key // A
             )
-            run_lbl = torch.full((E,), T, dtype=torch.int64, device=dev).scatter_(
-                0, run_id, key % A
+            run_lbl = torch.full((B, E), T, dtype=torch.int64, device=dev).scatter_(
+                1, run_id, key % A
             )
 
             # ---- eligibility + scoring
-            own = labels[nd].to(torch.int64)
+            own = labels.gather(1, nd).to(torch.int64)
             rs = torch.clamp(run_slot, max=N - 1)
-            own_r = own[rs]
-            node_w_r = nw_ext[nd[rs]]
-            cand_w = weights[torch.clamp(run_lbl, max=T)]
+            own_r = own.gather(1, rs)
+            node_w_r = nw_ext[nd.gather(1, rs)]
+            cand_w = weights.gather(1, torch.clamp(run_lbl, max=T))
             fits = cand_w + node_w_r <= U
             if refine_mode:
-                own_w = weights[torch.clamp(own, max=T)]
-                overloaded = own_w[rs] > U
+                own_w = weights.gather(1, torch.clamp(own, max=T))
+                overloaded = own_w.gather(1, rs) > U
                 eligible = torch.where(
                     overloaded,
                     fits & (run_lbl != own_r),                      # must leave
@@ -215,18 +248,18 @@ def lp_sweep(
             else:
                 eligible = (run_w > 0) & (fits | (run_lbl == own_r))
             eligible &= run_slot < N
-            jitter = hash_jitter((base_jit + cc) & _M32, run_slot, run_lbl)
+            jitter = hash_jitter(base_jit[it, :, c, None], run_slot, run_lbl)
             score = torch.where(eligible, run_w + jitter, _NEG)
 
             # ---- per-node argmax over runs, min-label tie-break
             seg = torch.clamp(run_slot, max=N)   # runs of padded slots -> N
-            best = torch.full((N + 1,), _NEG, dtype=torch.float32, device=dev)
-            best = best.scatter_reduce(0, seg, score, "amax", include_self=True)
-            is_best = (score >= best[seg]) & (score > _NEG / 2)
-            win = torch.full((N + 1,), T, dtype=torch.int64, device=dev)
+            best = torch.full((B, N + 1), _NEG, dtype=torch.float32, device=dev)
+            best = best.scatter_reduce(1, seg, score, "amax", include_self=True)
+            is_best = (score >= best.gather(1, seg)) & (score > _NEG / 2)
+            win = torch.full((B, N + 1), T, dtype=torch.int64, device=dev)
             win = win.scatter_reduce(
-                0, seg, torch.where(is_best, run_lbl, T), "amin", include_self=True
-            )[:N]
+                1, seg, torch.where(is_best, run_lbl, T), "amin", include_self=True
+            )[:, :N]
             new_lbl = torch.where(ndv & (win < T), win, own)
 
             moved = ndv & (new_lbl != own)
@@ -238,21 +271,53 @@ def lp_sweep(
                 # probability clip((U - w + outflow) / inflow, 0, 1).
                 mv_w = torch.where(moved, nwv, 0.0)
                 zero_w = torch.zeros_like(weights)
-                inflow = _add_at(zero_w.clone(), torch.where(moved, new_lbl, T), mv_w)
-                outflow = _add_at(zero_w, torch.where(moved, own, T), mv_w)
+                inflow = _add_rows(zero_w.clone(), torch.where(moved, new_lbl, T), mv_w)
+                outflow = _add_rows(zero_w, torch.where(moved, own, T), mv_w)
                 head = U - weights + outflow
                 p_in = torch.clamp(head / torch.clamp(inflow, min=1e-9), 0.0, 1.0)
-                gate_u = hash_jitter((base_gate + cc) & _M32, nd, new_lbl) / 0.49
-                moved &= gate_u < p_in[torch.clamp(new_lbl, max=T)]
+                gate_u = hash_jitter(base_gate[it, :, c, None], nd, new_lbl) / 0.49
+                moved &= gate_u < p_in.gather(1, torch.clamp(new_lbl, max=T))
                 new_lbl = torch.where(moved, new_lbl, own)
-            labels[nd] = torch.where(ndv, new_lbl, own).to(torch.int32)
-            _add_at(weights, torch.where(moved, own, T), torch.where(moved, -nwv, 0.0))
-            _add_at(weights, torch.where(moved, new_lbl, T), torch.where(moved, nwv, 0.0))
+            labels.scatter_(1, nd, torch.where(ndv, new_lbl, own).to(labels.dtype))
+            _add_rows(weights, torch.where(moved, own, T), torch.where(moved, -nwv, 0.0))
+            _add_rows(weights, torch.where(moved, new_lbl, T), torch.where(moved, nwv, 0.0))
             # keep the sentinel weight slot at +inf (the adds above target it
             # with value 0 for unmoved nodes)
-            weights[T] = float("inf")
-            moves += moved.sum()
+            weights[:, T] = float("inf")
+            moves += moved.sum(dim=1)
     return labels, weights, moves
+
+
+def lp_sweep(
+    nodes: torch.Tensor,
+    node_valid: torch.Tensor,
+    edge_dst: torch.Tensor,
+    edge_w: torch.Tensor,
+    edge_src_slot: torch.Tensor,
+    edge_valid: torch.Tensor,
+    labels: torch.Tensor,         # (A,) int32 arena, A >= n + 1
+    weights: torch.Tensor,        # (W,) float32; slots >= num_labels hold +inf
+    nw_ext: torch.Tensor,
+    restrict: torch.Tensor,
+    U: float,
+    seed: int,
+    num_labels: int,
+    num_chunks: int,
+    *,
+    iters: int,
+    refine_mode: bool,
+    use_restrict: bool,
+    permute_chunks: bool,
+):
+    """One label row of :func:`lp_sweep_batched`; returns ``(labels,
+    weights, moves)`` for that row."""
+    labels, weights, moves = lp_sweep_batched(
+        nodes, node_valid, edge_dst, edge_w, edge_src_slot, edge_valid,
+        labels[None], weights[None], nw_ext, restrict, U, [seed], num_labels,
+        num_chunks, iters=iters, refine_mode=refine_mode,
+        use_restrict=use_restrict, permute_chunks=permute_chunks,
+    )
+    return labels[0], weights[0], moves[0]
 
 
 # --------------------------------------------------------------------------

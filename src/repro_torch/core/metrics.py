@@ -10,6 +10,7 @@ from ..graph.csr import GraphNP
 __all__ = [
     "cut_np",
     "cut_from_arcs",
+    "block_weights_dense",
     "block_weights_np",
     "imbalance_np",
     "lmax",
@@ -18,11 +19,21 @@ __all__ = [
 
 def cut_from_arcs(labels: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                   ew: torch.Tensor) -> torch.Tensor:
-    """Edge cut from flat arc tensors (a 0-dim float32 tensor).  Trailing
-    zero-weight arc padding is inert; for integral weights below 2^24 the
-    float32 sum is exact in any order."""
-    diff = labels[src] != labels[dst]
-    return torch.sum(torch.where(diff, ew, 0.0)) / 2.0
+    """Edge cut from flat arc tensors: float32, one per label row (``labels``
+    is ``(A,)`` or ``(B, A)``).  Trailing zero-weight arc padding is inert;
+    for integral weights below 2^24 the float32 sum is exact in any order."""
+    diff = labels[..., src] != labels[..., dst]
+    return torch.sum(torch.where(diff, ew, 0.0), dim=-1) / 2.0
+
+
+def block_weights_dense(labels: torch.Tensor, nw: torch.Tensor, Kb: int) -> torch.Tensor:
+    """``(..., Kb)`` block weights of arena labels (``(A,)`` or ``(B, A)``,
+    values in ``[0, Kb)``): slots at and beyond ``k`` collect the arena's
+    sentinel label with weight 0.  Returns the raw sums; callers mask or
+    +inf-pad the dead slots."""
+    out = torch.zeros(labels.shape[:-1] + (Kb,), dtype=torch.float32,
+                      device=labels.device)
+    return out.scatter_add_(-1, labels.to(torch.int64), nw.expand(labels.shape))
 
 
 def cut_np(g: GraphNP, labels: np.ndarray) -> float:

@@ -11,7 +11,10 @@ Pipeline per V-cycle:
              GraphDev hierarchy; only four scalars cross per level;
   initial:   the island evolutionary algorithm (KaFFPaE) on the coarsest
              graph — seeded with the projected current solution from the
-             2nd V-cycle on, so quality never regresses;
+             2nd V-cycle on, so quality never regresses.  The batched GA
+             runs on the engine's device where the reference would run its
+             device GA (``evo_engine`` "auto"/"device" and
+             ``LPEngine.can_evolve_device``), the host GA otherwise;
   uncoarsen: project labels through the hierarchy, r iterations of SCLaP
              local search per level (U = L_max, random order) or dense
              kernel-scored rounds, final feasibility repair.
@@ -19,9 +22,8 @@ Pipeline per V-cycle:
 Presets mirror the paper §V-A: *fast* (2 V-cycles, GA gets only its
 initial population), *eco* (5 V-cycles + GA generations), *minimal*.
 
-Not ported yet: the batched device GA (``evo_engine="device"``; in this
-port ``"auto"`` runs the host GA) and the distributed engine
-(``engine="dist"``).
+Not ported yet: the distributed engine (``engine="dist"``) and islands
+sharded over several GPUs (``evo_shard_islands`` with more than one card).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..graph.csr import GraphDev, GraphNP
@@ -76,9 +79,14 @@ class PartitionerConfig:
     # kernel-scored dense rounds at levels >= dense_min_n nodes
     refine_engine: str = "chunked"  # chunked | dense
     dense_min_n: int = 4096
-    # coarsest-stage evolutionary engine: only the host GA is ported, and
-    # "auto" selects it
-    evo_engine: str = "auto"        # auto | host
+    # coarsest-stage evolutionary engine: "device" runs the batched island
+    # GA on the engine's device, "host" the sequential KaFFPaE loop; "auto"
+    # picks device whenever the engine is active and its exact-weight gate
+    # (LPEngine.can_evolve_device) passes, host otherwise
+    evo_engine: str = "auto"        # auto | device | host
+    # spread islands over several devices (islands % device_count == 0);
+    # with one device the single-device loop runs
+    evo_shard_islands: bool = False
     # gain-based FM pass on the finest level (beyond the paper; "strong")
     fm_finest: bool = False
     fm_finest_max_n: int = 2_000_000
@@ -193,6 +201,8 @@ def _uncoarsen(g, hierarchy, lab, k, L, cfg, rng, eng):
                 if lab is None:  # leaving the device path
                     lab = lab_dev.cpu().numpy()
                     lab_dev = None
+                elif isinstance(lab, torch.Tensor):  # batched-GA labels
+                    lab = lab.cpu().numpy()
                 lab = project_labels(lab, C_np)
                 before = cut_np(gg_h, lab)
                 ref = _refine_numpy(gg_h, lab, k, L, cfg.lp_iters_refine, seed_r)
@@ -202,6 +212,8 @@ def _uncoarsen(g, hierarchy, lab, k, L, cfg, rng, eng):
                     lab = ref
     if lab is None:
         lab = eng.to_host(lab_dev, g.n)
+    elif isinstance(lab, torch.Tensor):  # batched-GA labels, no level above
+        lab = lab.cpu().numpy()
     return np.asarray(lab)
 
 
@@ -215,10 +227,8 @@ def partition(g, cfg: PartitionerConfig, *, device=None) -> PartitionReport:
     dev = resolve_device(device)
     if cfg.engine not in ("auto", "jnp", "numpy"):
         raise NotImplementedError(f"engine={cfg.engine!r} is not ported yet")
-    if cfg.evo_engine not in ("auto", "host"):
-        raise NotImplementedError(
-            f"evo_engine={cfg.evo_engine!r} is not ported yet; use 'host'"
-        )
+    if cfg.evo_engine not in ("auto", "device", "host"):
+        raise ValueError(f"unknown evo_engine={cfg.evo_engine!r}")
     t0 = time.time()
     rng = np.random.default_rng(cfg.seed)
     k = cfg.k
@@ -325,8 +335,20 @@ def partition(g, cfg: PartitionerConfig, *, device=None) -> PartitionReport:
             seed=int(rng.integers(1 << 30)),
             seed_individuals=seeds,
         )
-        with _obs_span("vcycle.evolve", cat="vcycle", n=int(gg.n)):
-            lab = evolve(gg.to_host() if isinstance(gg, GraphDev) else gg, evo)
+        use_dev_evo = (
+            eng is not None
+            and cfg.evo_engine in ("auto", "device")
+            and eng.can_evolve_device(gg, k, cfg.islands, cfg.pop_per_island)
+        )
+        with _obs_span("vcycle.evolve", cat="vcycle", n=int(gg.n),
+                       engine="device" if use_dev_evo else "host") as sp:
+            if use_dev_evo:
+                # the coarsest graph stays resident (GraphDev or the cached
+                # arena), and so do the labels into the projection
+                lab = eng.evolve_device(gg, evo, shard=cfg.evo_shard_islands)
+                sp.sync_on(lab)
+            else:
+                lab = evolve(gg.to_host() if isinstance(gg, GraphDev) else gg, evo)
 
         # ---------------- uncoarsening + local search ----------------
         lab = _uncoarsen(g, hierarchy, lab, k, L, cfg, rng, eng)

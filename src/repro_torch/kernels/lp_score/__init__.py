@@ -2,6 +2,7 @@ from .lp_score import lp_score_rows
 from .ops import (
     dense_eligibility,
     dense_round_device,
+    dense_round_device_batched,
     lp_refine_dense_round,
     node_scores,
 )
@@ -14,5 +15,6 @@ __all__ = [
     "node_scores_ref",
     "lp_refine_dense_round",
     "dense_round_device",
+    "dense_round_device_batched",
     "dense_eligibility",
 ]

@@ -6,12 +6,15 @@ torch ops around the kernel, as the reference keeps them XLA ops around
 its Pallas call.  The round's three random gates come from
 :mod:`.threefry`, bit-identical to the reference's ``jax.random`` draws.
 All shapes are *bucket* shapes (pow2 rows, pow2 node count); ``n`` is the
-live node count.
+live node count.  The round takes a leading batch of label rows that share
+one ELL pack: :func:`dense_round_device_batched` scores all of them with one
+kernel launch on the flattened ``(B * Rb, W)`` rows, and
+:func:`dense_round_device` is its one-row case.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,21 +29,26 @@ __all__ = [
     "node_scores",
     "lp_refine_dense_round",
     "dense_round_device",
+    "dense_round_device_batched",
     "dense_eligibility",
 ]
 
 
 def _row_scores(ell_dst, ell_w, row_node, lab_pad, n: int, *, k: int):
-    """ELL row scores segment-summed into (nb, k) node scores.
+    """ELL row scores segment-summed into (B, nb, k) node scores, one kernel
+    launch for all ``B`` label rows.
 
-    ``lab_pad`` has ``nb >= n + 1`` entries with label ``k`` beyond ``n``,
-    so sentinel destinations contribute nothing; rows owned by sentinel
-    nodes go to a dropped slot."""
-    nb = lab_pad.shape[0]
-    row_scores = lp_score_rows(lab_pad[ell_dst], ell_w, k)
+    ``lab_pad`` is ``(B, nb)`` with ``nb >= n + 1`` and label ``k`` beyond
+    ``n``, so sentinel destinations contribute nothing; rows owned by
+    sentinel nodes go to a dropped slot."""
+    B, nb = lab_pad.shape
+    Rb, W = ell_dst.shape
+    lbl = lab_pad[:, ell_dst].reshape(B * Rb, W)
+    row_scores = lp_score_rows(lbl, ell_w.expand(B, Rb, W).reshape(B * Rb, W), k)
     seg = torch.where(row_node >= n, nb, row_node)
-    out = torch.zeros((nb + 1, k), dtype=torch.float32, device=lab_pad.device)
-    return out.index_add_(0, seg, row_scores)[:nb]
+    seg = (seg + (nb + 1) * torch.arange(B, device=seg.device)[:, None]).reshape(-1)
+    out = torch.zeros((B * (nb + 1), k), dtype=torch.float32, device=lab_pad.device)
+    return out.index_add_(0, seg, row_scores).view(B, nb + 1, k)[:, :nb]
 
 
 def _ell_tensors(ell: EllPack, dev: torch.device):
@@ -67,18 +75,83 @@ def node_scores(
     lab_pad = torch.from_numpy(
         np.concatenate([np.asarray(labels, np.int32), np.array([k], np.int32)])
     ).to(dev)
-    return _row_scores(dst, w, row_node, lab_pad, g.n, k=k)[: g.n]
+    return _row_scores(dst, w, row_node, lab_pad[None], g.n, k=k)[0, : g.n]
 
 
 def dense_eligibility(S, lab, bw, nw, U, k: int):
     """Vectorized SCLaP refine-mode eligibility, mirroring the sequential
     rule of ``sclap_numpy``: a node of an overloaded block may move to any
     *connected* block that fits, its own excluded ("must leave"); any other
-    node to any connected block that fits, or its own block."""
-    own = torch.arange(k, dtype=lab.dtype, device=lab.device)[None, :] == lab[:, None]
-    fits = bw[None, :] + nw[:, None] <= U
-    overloaded = (bw[lab.to(torch.int64)] > U)[:, None]
+    node to any connected block that fits, or its own block.  ``S`` is
+    ``(..., nb, k)``, ``lab`` ``(..., nb)``, ``bw`` ``(..., k)``."""
+    own = torch.arange(k, dtype=lab.dtype, device=lab.device) == lab[..., None]
+    fits = bw[..., None, :] + nw[..., :, None] <= U
+    overloaded = (bw.gather(-1, lab.to(torch.int64)) > U)[..., None]
     return (S > 0) & torch.where(overloaded, fits & ~own, fits | own)
+
+
+def _uniform_rows(keys, shape, dev) -> torch.Tensor:
+    """``(len(keys), *shape)`` threefry draws, row ``b`` from ``keys[b]``."""
+    return torch.stack([threefry.uniform(key, shape, dev) for key in keys])
+
+
+def dense_round_device_batched(
+    ell_dst: torch.Tensor,    # (Rb, W) int64 — shared cached ELL pack
+    ell_w: torch.Tensor,      # (Rb, W) float32
+    row_node: torch.Tensor,   # (Rb,) int64, sentinel n
+    labs: torch.Tensor,       # (B, nb) int32 — label rows, k beyond n
+    nw: torch.Tensor,         # (nb,) float32 — node weights, 0 beyond n
+    U: float,
+    seeds: Sequence[int],     # one round seed per row
+    move_fraction: float,
+    n: int,
+    *,
+    k: int,
+) -> torch.Tensor:
+    """One fully synchronous dense LP round for each of ``B`` label rows;
+    returns the new (B, nb) labels.  Row ``b`` is what
+    :func:`dense_round_device` returns for ``labs[b]`` and ``seeds[b]``.
+
+    Every node sees the same block weights; a strictly improving move is
+    applied with probability ``move_fraction``, and nodes of overloaded
+    blocks leave with probability proportional to their block's excess.
+    """
+    dev = labs.device
+    B, nb = labs.shape
+    U = torch.tensor(float(np.float32(U)), dtype=torch.float32, device=dev)
+    valid = torch.arange(nb, device=dev) < n
+    # padded slots keep label k: the sentinel-destination label of the ELL
+    # gather, and outside every block weight
+    labs = torch.where(valid, labs, k).to(torch.int32)
+    nw = torch.where(valid, nw, 0.0)
+    S = _row_scores(ell_dst, ell_w, row_node, labs, n, k=k)
+    lab_c = torch.clamp(labs, max=k - 1).to(torch.int64)
+    bw = torch.zeros((B, k + 1), dtype=torch.float32, device=dev).scatter_add_(
+        1, torch.clamp(labs, max=k).to(torch.int64), nw.expand(B, nb)
+    )[:, :k]
+    keys = [threefry.prng_key(int(s)) for s in seeds]
+    own_score = S.gather(2, lab_c[..., None])[..., 0]
+    bw_own = bw.gather(1, lab_c)
+    overloaded = bw_own > U
+    eligible = dense_eligibility(S, lab_c, bw, nw, U, k)
+    masked = torch.where(
+        eligible, S + _uniform_rows(keys, (nb, k), dev) * 0.49, -float("inf")
+    )
+    best = torch.argmax(masked, dim=2)
+    has = torch.isfinite(masked.max(dim=2).values)
+    gate = _uniform_rows(
+        [threefry.fold_in(key, 1) for key in keys], (nb,), dev
+    ) < float(np.float32(move_fraction))
+    # strict improvement only: cut-neutral moves oscillate under
+    # synchronous updates (stale block weights)
+    improve = S.gather(2, best[..., None])[..., 0] > own_score
+    # overloaded blocks shed only their EXCESS in expectation
+    excess = torch.clamp((bw_own - U) / torch.clamp(bw_own, min=1.0), 0.0, 1.0)
+    ov_gate = _uniform_rows(
+        [threefry.fold_in(key, 2) for key in keys], (nb,), dev
+    ) < 1.5 * excess
+    move = valid & has & ((gate & improve) | (overloaded & ov_gate))
+    return torch.where(move, best.to(torch.int32), labs)
 
 
 def dense_round_device(
@@ -94,46 +167,11 @@ def dense_round_device(
     *,
     k: int,
 ) -> torch.Tensor:
-    """One fully synchronous dense LP round; returns the new (nb,) labels.
-
-    Every node sees the same block weights; a strictly improving move is
-    applied with probability ``move_fraction``, and nodes of overloaded
-    blocks leave with probability proportional to their block's excess.
-    """
-    dev = lab.device
-    nb = lab.shape[0]
-    U = torch.tensor(float(np.float32(U)), dtype=torch.float32, device=dev)
-    valid = torch.arange(nb, device=dev) < n
-    # padded slots keep label k: the sentinel-destination label of the ELL
-    # gather, and outside every block weight
-    lab = torch.where(valid, lab, k).to(torch.int32)
-    nw = torch.where(valid, nw, 0.0)
-    S = _row_scores(ell_dst, ell_w, row_node, lab, n, k=k)
-    lab_c = torch.clamp(lab, max=k - 1).to(torch.int64)
-    bw = torch.zeros(k + 1, dtype=torch.float32, device=dev).index_add_(
-        0, torch.clamp(lab, max=k).to(torch.int64), nw
-    )[:k]
-    key = threefry.prng_key(seed)
-    own_score = S.gather(1, lab_c[:, None])[:, 0]
-    overloaded = bw[lab_c] > U
-    eligible = dense_eligibility(S, lab_c, bw, nw, U, k)
-    masked = torch.where(
-        eligible, S + threefry.uniform(key, (nb, k), dev) * 0.49, -float("inf")
-    )
-    best = torch.argmax(masked, dim=1)
-    has = torch.isfinite(masked.max(dim=1).values)
-    gate = threefry.uniform(threefry.fold_in(key, 1), (nb,), dev) < float(
-        np.float32(move_fraction)
-    )
-    # strict improvement only: cut-neutral moves oscillate under
-    # synchronous updates (stale block weights)
-    improve = S.gather(1, best[:, None])[:, 0] > own_score
-    # overloaded blocks shed only their EXCESS in expectation
-    bw_own = bw[lab_c]
-    excess = torch.clamp((bw_own - U) / torch.clamp(bw_own, min=1.0), 0.0, 1.0)
-    ov_gate = threefry.uniform(threefry.fold_in(key, 2), (nb,), dev) < 1.5 * excess
-    move = valid & has & ((gate & improve) | (overloaded & ov_gate))
-    return torch.where(move, best.to(torch.int32), lab)
+    """One fully synchronous dense LP round; returns the new (nb,) labels
+    (the one-row case of :func:`dense_round_device_batched`)."""
+    return dense_round_device_batched(
+        ell_dst, ell_w, row_node, lab[None], nw, U, [seed], move_fraction, n, k=k
+    )[0]
 
 
 def lp_refine_dense_round(

@@ -1,6 +1,6 @@
 """repro_torch cases that need an NVIDIA GPU: each hand-written CUDA kernel
-against its plain PyTorch version on the card, and the dense round's card
-path against its CPU path.  Marked ``cuda``; they skip without a device.
+against its plain PyTorch version on the card, and the dense round's and
+the batched GA's card paths against their CPU paths.  Marked ``cuda``; they skip without a device.
 This file imports neither jax nor the reference package, so it runs on a
 GPU machine that has only PyTorch:
 
@@ -11,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.graph import ell_pack, rmat
+from repro_torch.core import LPEngine
+from repro_torch.core.evolutionary import EvoConfig
+from repro_torch.core.metrics import lmax
+from repro_torch.graph import barabasi_albert, ell_pack, rmat
 from repro_torch.kernels.lp_score import (
     dense_round_device,
+    dense_round_device_batched,
     lp_score_rows,
     lp_score_rows_ref,
 )
@@ -76,3 +80,47 @@ def test_dense_round_card_matches_cpu():
                                 g.n, k=k)
     assert torch.equal(on_card, on_cpu)
     assert int((on_cpu[: g.n] != torch.from_numpy(lab[: g.n])).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_batched_dense_round_card_matches_rows():
+    """The batched dense round scores all rows with one kernel launch; on
+    the card each row equals a one-row round with its seed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = rmat(10, 8, seed=7)
+    k, B = 4, 3
+    ell = ell_pack(g)
+    nb = 1 << g.n.bit_length()
+    lab = np.full((B, nb), k, np.int32)
+    lab[:, : g.n] = np.random.default_rng(1).integers(0, k, (B, g.n))
+    nw = np.zeros(nb, np.float32)
+    nw[: g.n] = g.nw
+    U = float(np.ceil(g.n / k) * 1.05)
+    ell_t = [torch.from_numpy(a).cuda() for a in
+             (ell.dst.astype(np.int64), ell.w, ell.row_node.astype(np.int64))]
+    labs, nw_t = torch.from_numpy(lab).cuda(), torch.from_numpy(nw).cuda()
+    before = lp_score_rows.launches
+    got = dense_round_device_batched(*ell_t, labs, nw_t, U, [3, 17, 40000], 0.5, g.n, k=k)
+    assert lp_score_rows.launches == before + 1
+    for b, seed in enumerate((3, 17, 40000)):
+        one = dense_round_device(*ell_t, labs[b], nw_t, U, seed, 0.5, g.n, k=k)
+        assert torch.equal(got[b], one)
+
+
+@pytest.mark.cuda
+def test_batched_ga_card_matches_cpu():
+    """The batched GA on the card (device sorts, scatters and atomics) returns
+    the CPU run's labels, and the numpy oracle's, on an integral graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = barabasi_albert(500, 4, seed=2)
+    k = 4
+    cfg = EvoConfig(k=k, Lmax=lmax(g.n, k, 0.03), islands=4, pop_per_island=3,
+                    generations=2, refine_iters=3, seed=15)
+    cpu = LPEngine(g, seed=0, device="cpu")
+    want = cpu.evolve_device(g, cfg)
+    on_card = LPEngine(g, seed=0, device="cuda").evolve_device(g, cfg)
+    assert on_card.is_cuda
+    assert torch.equal(on_card.cpu(), want)
+    np.testing.assert_array_equal(want.numpy(), cpu.evolve_oracle(g, cfg))

@@ -84,10 +84,15 @@ def test_entry_points_need_cuda_unless_told_otherwise():
 
 
 def test_unported_options_raise():
+    """The distributed engine is not ported and says so; the batched GA is
+    (evo_engine="device" runs it), and an unknown GA engine is an error."""
     from repro_torch.core import PartitionerConfig, partition
     from repro_torch.graph import mesh2d
 
     g = mesh2d(8)
-    for kw in (dict(evo_engine="device"), dict(engine="dist")):
-        with pytest.raises(NotImplementedError):
-            partition(g, PartitionerConfig(k=2, **kw), device="cpu")
+    with pytest.raises(NotImplementedError):
+        partition(g, PartitionerConfig(k=2, engine="dist"), device="cpu")
+    with pytest.raises(ValueError):
+        partition(g, PartitionerConfig(k=2, evo_engine="gpu"), device="cpu")
+    rep = partition(g, PartitionerConfig(k=2, evo_engine="device"), device="cpu")
+    assert rep.feasible and rep.engine_stats["evo_calls"] == 2

@@ -1,7 +1,7 @@
 """Port parity end to end: repro_torch.core.partition on the CPU returns the
-labels, cut, level sizes and per-cycle cuts of repro.core.partition for the
-first slice's configuration (dense refinement, host GA), and for the
-chunked refinement."""
+labels, cut, level sizes and per-cycle cuts of repro.core.partition with
+the host GA and with the default evo_engine="auto" (the batched device GA
+wherever the reference picks it), for dense and chunked refinement."""
 
 import numpy as np
 import pytest
@@ -49,6 +49,7 @@ def _check(gr, kw):
     assert got.cycle_cuts == want.cycle_cuts
     assert got.feasible == want.feasible
     assert got.engine_stats["dense_rounds"] == want.engine_stats["dense_rounds"]
+    assert got.engine_stats["evo_calls"] == want.engine_stats["evo_calls"]
     return got
 
 
@@ -63,6 +64,20 @@ def test_partition_matches_reference(case, refine, k, extra):
         assert got.engine_stats["dense_rounds"] > 0
     else:
         assert got.engine_stats["dense_rounds"] == 0
+
+
+AUTO_CASES = [c for c in CASES if (c[0], c[1]) in {("rmat", "dense"), ("mesh", "chunked")}]
+
+
+@pytest.mark.parametrize("case,refine,k,extra", AUTO_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in AUTO_CASES])
+def test_partition_default_evo_engine_matches_reference(case, refine, k, extra):
+    """The default evo_engine="auto" picks the reference's GA: the batched
+    device GA on these integral graphs, in both V-cycles."""
+    kw = dict(k=k, preset="fast", refine_engine=refine, seed=0, **extra)
+    got = _check(_graph(case), kw)
+    assert got.feasible
+    assert got.engine_stats["evo_calls"] == 2
 
 
 def test_partition_with_initial_labels_matches_reference():
