@@ -17,7 +17,10 @@ Phases, each of which fails the run:
    isolated nodes, at k=16, with dense refinement: first with the default
    ``evo_engine``, whose coarsest stage must run the batched GA on the card
    in both V-cycles, then with the host GA.  Each run counts the kernel's
-   launches from zero and must be feasible and beat a hash partition;
+   launches from zero and must be feasible and beat a hash partition.
+   Then the GA's generation step, which the fast preset skips: card == CPU
+   on rmat(14, 16), and two generations on the full graph seeded with the
+   run's partition, which must come out no worse than its seed;
 5. time each kernel and its plain version on the main path's own input
    (the finest level's ELL pack with the run's labels) and print one JSON
    line with each kernel's numbers and, last, the device line.
@@ -239,6 +242,85 @@ def check_small_parity(torch) -> None:
               f"levels {on_card.level_sizes}", flush=True)
 
 
+def _evo_key(g, lab, k: int, Lmax: float) -> int:
+    """The GA's fitness key of ``lab`` on the host: the cut, plus the
+    penalty if a block is heavier than ``Lmax``."""
+    import numpy as np
+    from repro_torch.core.evolutionary import INFEAS_PENALTY
+    from repro_torch.core.metrics import cut_np
+
+    bw = np.bincount(lab, weights=g.nw, minlength=k).astype(np.float32)
+    return int(cut_np(g, lab)) + (0 if (bw <= np.float32(Lmax)).all() else INFEAS_PENALTY)
+
+
+def check_ga_generations(torch, g, seed_labels, k: int = 16, generations: int = 2) -> None:
+    """Phase 4 for the GA's generation step, which the fast preset never
+    runs (it has no generations): (a) card == CPU on rmat(14, 16) without
+    isolated nodes with the eco preset's population (4 islands x 3) over
+    ``generations`` generations; (b) the fast preset's population (2 x 2)
+    over ``generations`` generations on the full graph ``g`` (Ab = 2^19,
+    the shape gate's limit), seeded with ``seed_labels``: the best key must
+    be no worse than the seed's.  Prints the seconds and the peak device
+    memory of (b)."""
+    import numpy as np
+    from repro_torch.core import LPEngine
+    from repro_torch.core.evolutionary import EvoConfig
+    from repro_torch.core.metrics import lmax
+    from repro_torch.graph import pow2, rmat
+
+    small = drop_isolated(rmat(14, 16, seed=1))
+    cfg = EvoConfig(k=k, Lmax=lmax(float(small.nw.sum()), k, 0.03), islands=4,
+                    pop_per_island=3, generations=generations, refine_iters=6, seed=7)
+    card = LPEngine(small, seed=0)
+    if not card.can_evolve_device(small, k, cfg.islands, cfg.pop_per_island):
+        _fail("the batched GA's gate refuses rmat(14, 16)")
+    card._evo_arrays(small)    # pack and upload before the clock starts
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    on_card = card.evolve_device(small, cfg).cpu()
+    card_s = time.perf_counter() - t
+    on_cpu = LPEngine(small, seed=0, device="cpu").evolve_device(small, cfg)
+    if card.stats.evo_calls != 1 + generations:
+        _fail(f"GA generations on rmat(14, 16): evo_calls {card.stats.evo_calls}")
+    if not torch.equal(on_card, on_cpu):
+        _fail(f"GA generations on rmat(14, 16): card and CPU differ in "
+              f"{int((on_card != on_cpu).sum())} labels")
+    print(f"GA 4x3, {generations} generations, rmat(14, 16) n={small.n}: card == cpu, "
+          f"key {_evo_key(small, on_card.numpy(), k, cfg.Lmax)}, card {card_s:.3f} s",
+          flush=True)
+
+    L = lmax(float(g.nw.sum()), k, 0.03)
+    cfg = EvoConfig(k=k, Lmax=L, islands=2, pop_per_island=2, generations=generations,
+                    refine_iters=6, seed=7, seed_individuals=[seed_labels])
+    eng = LPEngine(g, seed=0)
+    if not eng.can_evolve_device(g, k, cfg.islands, cfg.pop_per_island):
+        _fail(f"the batched GA's gate refuses the full graph (n={g.n})")
+    eng._evo_arrays(g)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    lab = eng.evolve_device(g, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    lab = lab.cpu().numpy()
+    seed_key = _evo_key(g, np.asarray(seed_labels, np.int32), k, L)
+    best_key = _evo_key(g, lab, k, L)
+    print(f"GA 2x2, {generations} generations, full graph n={g.n} (Ab={pow2(g.n + 1)}), "
+          f"seeded: {secs:.3f} s, evo_calls {eng.stats.evo_calls}, best key {best_key} "
+          f"(seed {seed_key}), peak device memory {peak / 2**30:.3f} GiB "
+          f"({(peak - base) / 2**30:.3f} GiB above the {base / 2**30:.3f} GiB held before)",
+          flush=True)
+    if eng.stats.evo_calls != 1 + generations:
+        _fail(f"GA generations on the full graph: evo_calls {eng.stats.evo_calls}")
+    if best_key > seed_key:
+        _fail(f"GA generations on the full graph: best key {best_key} worse than "
+              f"the seed's {seed_key}")
+    del eng
+    torch.cuda.empty_cache()
+
+
 def drop_isolated(g):
     """The subgraph of ``g`` on its nodes of degree > 0 (ids renumbered in
     order, so every CSR row stays sorted)."""
@@ -403,6 +485,8 @@ def main(argv=None) -> int:
                   launches=r["launches"])
         for evo, r in runs.items()}), flush=True)
     rep = runs["auto"]["rep"]
+    # the GA's generation step at full width, seeded with the run's result
+    check_ga_generations(torch, g, rep.labels)
 
     # ---- phase 5: the kernels' numbers on the main path's own input
     m = path_lp_score_rows(torch, g, rep.labels, k=16)

@@ -539,22 +539,13 @@ class LPEngine:
         (shared with refine sweeps), so the graph uploads once per run."""
         return self._pack(g, "random"), self._arena(g), pow2(g.n + 1)
 
-    def evolve_device(self, g: AnyGraph, cfg, shard: bool = False) -> torch.Tensor:
+    def evolve_device(self, g: AnyGraph, cfg) -> torch.Tensor:
         """Batched island GA; returns the best partition of ``g`` as an (n,)
         int32 tensor on the engine's device, bit-identical to
-        :meth:`evolve_oracle` under the same config on integral weights.
-
-        ``shard=True`` asks for islands spread over several devices; with
-        one device the single-device loop runs, as in the reference."""
+        :meth:`evolve_oracle` under the same config on integral weights."""
         n, k = g.n, cfg.k
         I, P, G = cfg.islands, cfg.pop_per_island, cfg.generations
         Kb, Sb, Ib = pow2(k + 1), pow2(I * P), pow2(I)
-        D = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        if shard and G > 0 and D > 1 and I % D == 0:
-            raise NotImplementedError(
-                "evo_shard_islands over several GPUs belongs to the distributed "
-                "slice of the port, which is not ported yet"
-            )
         dp, ar, Ab = self._evo_arrays(g)
         EG = EvoGraph(
             pack=(dp.nodes, dp.node_valid, dp.edge_dst, dp.edge_w,

@@ -22,8 +22,9 @@ Pipeline per V-cycle:
 Presets mirror the paper §V-A: *fast* (2 V-cycles, GA gets only its
 initial population), *eco* (5 V-cycles + GA generations), *minimal*.
 
-Not ported yet: the distributed engine (``engine="dist"``) and islands
-sharded over several GPUs (``evo_shard_islands`` with more than one card).
+Not ported yet: the distributed engine (``engine="dist"``) and the
+reference's ``evo_shard_islands`` (islands sharded over several devices);
+both come with the distributed slice.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ __all__ = ["PartitionerConfig", "PartitionReport", "partition"]
 
 @dataclass
 class PartitionerConfig:
-    """The reference's configuration, field for field."""
+    """The reference's configuration, field for field, less
+    ``evo_shard_islands`` (not ported yet)."""
 
     k: int = 2
     eps: float = 0.03
@@ -84,9 +86,6 @@ class PartitionerConfig:
     # picks device whenever the engine is active and its exact-weight gate
     # (LPEngine.can_evolve_device) passes, host otherwise
     evo_engine: str = "auto"        # auto | device | host
-    # spread islands over several devices (islands % device_count == 0);
-    # with one device the single-device loop runs
-    evo_shard_islands: bool = False
     # gain-based FM pass on the finest level (beyond the paper; "strong")
     fm_finest: bool = False
     fm_finest_max_n: int = 2_000_000
@@ -345,7 +344,7 @@ def partition(g, cfg: PartitionerConfig, *, device=None) -> PartitionReport:
             if use_dev_evo:
                 # the coarsest graph stays resident (GraphDev or the cached
                 # arena), and so do the labels into the projection
-                lab = eng.evolve_device(gg, evo, shard=cfg.evo_shard_islands)
+                lab = eng.evolve_device(gg, evo)
                 sp.sync_on(lab)
             else:
                 lab = evolve(gg.to_host() if isinstance(gg, GraphDev) else gg, evo)
