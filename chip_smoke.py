@@ -22,8 +22,19 @@ Phases, each of which fails the run:
    on rmat(14, 16), and two generations on the full graph seeded with the
    run's partition, which must come out no worse than its seed;
 5. time each kernel and its plain version on the main path's own input
-   (the finest level's ELL pack with the run's labels) and print one JSON
-   line with each kernel's numbers and, last, the device line.
+   (the finest level's ELL pack with the run's labels);
+6. the dynamic serving subsystem (``repro_torch.dynamic``): (a) a small
+   mixed stream (edge churn, node adds, node removals) under the default
+   and the throughput session config, and a three-tenant ``SessionGroup``,
+   card == CPU after every batch; (b) a session on the phase-4 graph at
+   k=16 under the reference benchmark's churn model at 0.1 %: every step
+   feasible, the store's CSR equal to a numpy rebuild of the edge multiset,
+   one full-width repair card == CPU, then one forced escalation with its
+   ``lp_score_rows`` launches; (c) the throughput config on the reference
+   benchmark's ba-16384 at 1 % and 0.1 % churn; (d) the reference
+   benchmark's four-tenant group against the same sessions solo (labels
+   equal after every step).  Then one JSON line with each kernel's numbers
+   and, last, the device line.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--scale``/``--edge-factor`` shrink the end-to-end graph for quick runs).
@@ -427,6 +438,391 @@ def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
                 evolve_s=sum(e[2] for e in evolves), evolves=evolves)
 
 
+# --------------------------------------------------------------------------
+# phase 6: the dynamic serving subsystem
+# --------------------------------------------------------------------------
+
+
+def _pcts(xs) -> str:
+    import numpy as np
+
+    a = np.asarray(xs, np.float64)
+    return (f"p50 {np.percentile(a, 50):.4f} s, p99 {np.percentile(a, 99):.4f} s, "
+            f"min {a.min():.4f} s, max {a.max():.4f} s")
+
+
+def churn_batches(g, rng, nb: int, n_now):
+    """The reference benchmark's churn model (``benchmarks/run.py``,
+    ``_churn_stream``): per batch ``nb`` random adds plus ``nb`` removals of
+    surviving original edges, each of weight 1, so the edge-weight sum
+    stays constant.  ``n_now()`` gives the current node count.  Yields
+    ``(update, (add_u, add_v), (rem_u, rem_v))``."""
+    import numpy as np
+    from repro_torch.dynamic import GraphUpdate
+
+    src0 = g.arc_sources()
+    removed = src0 >= g.indices        # canonical (src < dst) arcs only
+    while True:
+        n = n_now()
+        au = rng.integers(0, n, nb)
+        av = (au + 1 + rng.integers(0, n - 1, nb)) % n
+        cand = rng.permutation(np.flatnonzero(~removed))[:nb]
+        removed[cand] = True
+        ru, rv = src0[cand], g.indices[cand]
+        upd = GraphUpdate.add_edges(au, av).merged(GraphUpdate.remove_edges(ru, rv))
+        yield upd, (au, av), (ru, rv)
+
+
+def _small_stream(g, seed: int):
+    """Phase 6a's six actions on ``g``: edge churn, 32 added nodes, 24 of
+    them wired in, the 8 left isolated removed."""
+    import numpy as np
+    from repro_torch.dynamic import GraphUpdate
+
+    rng = np.random.default_rng(seed)
+    n0 = g.n
+    batches = churn_batches(g, rng, 24, lambda: n0)
+    acts = [("update", next(batches)[0]), ("update", next(batches)[0])]
+    acts.append(("update", GraphUpdate.add_nodes(np.ones(32, np.int64)).merged(
+        next(batches)[0])))
+    new = np.arange(n0, n0 + 24)
+    acts.append(("update", GraphUpdate.add_edges(new, rng.integers(0, n0, 24)).merged(
+        next(batches)[0])))
+    acts.append(("update", next(batches)[0]))
+    acts.append(("remove_nodes", np.arange(n0 + 24, n0 + 32)))
+    return acts
+
+
+def _same_step(tag, a, b, la, lb):
+    import numpy as np
+
+    if not np.array_equal(la, lb):
+        _fail(f"{tag}: card and CPU labels differ in {int((la != lb).sum())} nodes")
+    for f in ("cut", "region_size", "imbalance", "feasible", "escalated", "used_view", "n", "m"):
+        if getattr(a, f) != getattr(b, f):
+            _fail(f"{tag}: {f} {getattr(a, f)} on the card, {getattr(b, f)} on the CPU")
+
+
+def check_dynamic_small(torch) -> None:
+    """Phase 6a: a small mixed stream on the card and on the CPU, under the
+    default and the throughput session config, then a three-tenant group
+    (one tenant at k=3): labels, cuts and region sizes equal after every
+    batch."""
+    import numpy as np
+    from repro_torch.dynamic import PartitionSession, SessionConfig, SessionGroup
+    from repro_torch.graph import barabasi_albert
+
+    g = barabasi_albert(1024, 4, seed=5)
+    acts = _small_stream(g, seed=1)
+    for name, cfg in (("default", dict()), ("throughput", dict(compact_fraction=0.02))):
+        make = SessionConfig.throughput if name == "throughput" else SessionConfig
+        sess = {d: PartitionSession(g, make(k=4, seed=0, **cfg), device=d)
+                for d in ("cuda", "cpu")}
+        _same_step(f"6a {name} start", sess["cuda"].trajectory[0], sess["cpu"].trajectory[0],
+                   sess["cuda"].labels_np(), sess["cpu"].labels_np())
+        views = 0
+        for i, (kind, x) in enumerate(acts):
+            res = {d: (s.update(x) if kind == "update" else s.remove_nodes(x))
+                   for d, s in sess.items()}
+            _same_step(f"6a {name} batch {i}", res["cuda"], res["cpu"],
+                       sess["cuda"].labels_np(), sess["cpu"].labels_np())
+            views += int(res["cuda"].used_view)
+        c = sess["cuda"]
+        if c.n != g.n + 24 or c.store.stats.vacuum_calls != 1:
+            _fail(f"6a {name}: n {c.n}, vacuum_calls {c.store.stats.vacuum_calls}")
+        print(f"6a {name}: 6 batches on ba-1024 k=4 (churn, +32 nodes, 24 wired, 8 removed): "
+              f"card == cpu, cut {c.cut}, view steps {views}, "
+              f"repair_calls {c.stats()['repair_calls']}", flush=True)
+    tenants = {f"t{i}": (barabasi_albert(1024, 4, seed=5 + i), k) for i, k in enumerate((4, 4, 3))}
+    groups, last = {}, {}
+    for d in ("cuda", "cpu"):
+        groups[d] = SessionGroup({
+            name: PartitionSession(gi, SessionConfig(k=k, seed=i, repair_iters=2), device=d)
+            for i, (name, (gi, k)) in enumerate(tenants.items())})
+    streams = {name: churn_batches(gi, np.random.default_rng(20 + i), 16, lambda gi=gi: gi.n)
+               for i, (name, (gi, _)) in enumerate(tenants.items())}
+    for step in range(4):
+        batch = [(name, next(st)[0]) for name, st in streams.items()]
+        for d, grp in groups.items():
+            last[d] = grp.update_many(batch)
+        for name in tenants:
+            _same_step(f"6a group step {step} tenant {name}", last["cuda"][name],
+                       last["cpu"][name], groups["cuda"].sessions[name].labels_np(),
+                       groups["cpu"].sessions[name].labels_np())
+    sd = groups["cuda"].stats_dict()
+    if sd["lanes_repaired"] != 12:
+        _fail(f"6a group: lanes_repaired {sd['lanes_repaired']}, want 12")
+    print(f"6a group of 3 tenants (k=4, 4, 3), 4 steps: card == cpu, {json.dumps(sd)}",
+          flush=True)
+
+
+def _span_ms(tracer) -> dict:
+    out = {}
+    for ev in tracer.events:
+        out[ev["name"]] = round(out.get(ev["name"], 0.0) + ev["dur"] / 1e3, 3)
+    return out
+
+
+def _traced(torch, fn):
+    """Run ``fn()`` once with span tracing on (spans synchronize the card at
+    their close); returns ``(result, {span: ms})``."""
+    from repro_torch.obs import Tracer, set_tracer
+
+    tracer = Tracer()
+    set_tracer(tracer)
+    try:
+        res = fn()
+        torch.cuda.synchronize()
+    finally:
+        set_tracer(None)
+    return res, _span_ms(tracer)
+
+
+def _report_batch(tag, res) -> None:
+    print(f"{tag}: {res.seconds:.4f} s, region {res.region_size}, cut {res.cut}, "
+          f"imbalance {res.imbalance:.5f}, feasible {res.feasible}, view {res.used_view}, "
+          f"escalated {res.escalated}, span_ms "
+          + json.dumps({k: round(v, 3) for k, v in res.span_ms.items()}), flush=True)
+
+
+def check_dynamic_full(torch, g, warm: int = 2, timed: int = 8) -> dict:
+    """Phase 6b: a session on the phase-4 graph at k=16 (dense refinement
+    at session start and in escalations) under the reference churn model
+    at 0.1 % of the edges per batch.  Checks feasibility at every step, the
+    store's CSR against a numpy rebuild of the edge multiset, one full-width
+    repair card == CPU, and runs one forced escalation."""
+    import numpy as np
+    from repro_torch.core import LPEngine, PartitionerConfig, partition
+    from repro_torch.dynamic import PartitionSession, SessionConfig
+    from repro_torch.graph import from_edges, to_device_csr
+    from repro_torch.kernels.lp_score import lp_score_rows
+
+    k = 16
+    pcfg = PartitionerConfig(k=k, preset="fast", refine_engine="dense", coarsest_factor=100)
+    nb = g.m // 2 // 1000
+    torch.cuda.synchronize()
+    lp_score_rows.launches = 0
+    t = time.perf_counter()
+    sess = PartitionSession(g, SessionConfig(k=k, seed=0, partition_cfg=pcfg))
+    torch.cuda.synchronize()
+    print(f"6b session start on n={g.n}, m={g.m}: {time.perf_counter() - t:.3f} s, "
+          f"cut {sess.cut}, lp_score_rows launches {lp_score_rows.launches}", flush=True)
+    batches = churn_batches(g, np.random.default_rng(11), nb, lambda: sess.n)
+    adds, rems, secs, last_touched = [], [], [], None
+    for i in range(warm + timed):
+        upd, a, r = next(batches)
+        last_upd = upd
+        adds.append(a)
+        rems.append(r)
+        if i == warm + timed - 1:
+            res, spans = _traced(torch, lambda: sess.update(upd))
+            print(f"6b traced batch spans_ms {json.dumps(spans)}", flush=True)
+        else:
+            res = sess.update(upd)
+        last_touched = np.concatenate([a[0], a[1], r[0], r[1]])
+        _report_batch(f"6b batch {i} ({nb} adds + {nb} removals)", res)
+        if not res.feasible:
+            _fail(f"6b batch {i} infeasible: imbalance {res.imbalance}")
+        if i >= warm and i < warm + timed - 1:
+            secs.append(res.seconds)
+    print(f"6b per-update seconds over {len(secs)} untraced timed batches: {_pcts(secs)}",
+          flush=True)
+    print(f"6b stats {json.dumps(sess.stats(), default=str)}", flush=True)
+    time_store_programs(torch, sess.store.base, last_upd)
+
+    # ---- the store's CSR against a numpy rebuild of the edge multiset
+    t = time.perf_counter()
+    gh = sess.store.csr_host()
+    src0 = g.arc_sources()
+    canon = src0 < g.indices
+    u = np.concatenate([src0[canon]] + [x[0] for x in adds] + [x[0] for x in rems])
+    v = np.concatenate([g.indices[canon]] + [x[1] for x in adds] + [x[1] for x in rems])
+    w = np.concatenate([g.ew[canon], np.ones(sum(x[0].size for x in adds)),
+                        -np.ones(sum(x[0].size for x in rems))])
+    lo, hi = np.minimum(u, v).astype(np.int64), np.maximum(u, v).astype(np.int64)
+    keys, inv = np.unique(lo * g.n + hi, return_inverse=True)
+    net = np.bincount(inv, weights=w)
+    live = net > 0
+    want = from_edges(g.n, keys[live] // g.n, keys[live] % g.n, net[live], nw=g.nw)
+    for name in ("indptr", "indices", "ew", "nw"):
+        if not np.array_equal(getattr(gh, name), getattr(want, name)):
+            _fail(f"6b store CSR differs from the numpy rebuild in {name}")
+    print(f"6b store CSR == numpy rebuild of the edge multiset (m={gh.m}, "
+          f"{time.perf_counter() - t:.1f} s)", flush=True)
+
+    # ---- one full-width repair, card against CPU, from the same state
+    U = sess._lmax()
+    kw = dict(hops=sess.cfg.hops, iters=sess.cfg.repair_iters, seed=12345,
+              hop_degree_cap=sess._hop_cap())
+    lab = sess.labels_np()
+    outs = {}
+    for d in ("cuda", "cpu"):
+        eng = LPEngine(g, target_chunks=sess.cfg.target_chunks, seed=0, device=d)
+        eng._repair_E = sess.engine._repair_E
+        gd = sess.store.graph() if d == "cuda" else to_device_csr(gh, "cpu")
+        t = time.perf_counter()
+        out, rsize, cut, bw = eng.repair(gd, lab, last_touched, k, U, **kw)
+        if d == "cuda":
+            torch.cuda.synchronize()
+        outs[d] = (out.cpu().numpy(), rsize, cut, bw, time.perf_counter() - t)
+    a, b = outs["cuda"], outs["cpu"]
+    if not np.array_equal(a[0], b[0]):
+        _fail(f"6b full-width repair: card and CPU labels differ in "
+              f"{int((a[0] != b[0]).sum())} nodes")
+    if a[1] != b[1] or a[2] != b[2] or not np.array_equal(a[3], b[3]):
+        _fail(f"6b full-width repair: region/cut/weights differ: {a[1:4]} vs {b[1:4]}")
+    print(f"6b one repair at full width (region {a[1]} of {g.n}): card == cpu, cut {a[2]}, "
+          f"card {a[4]:.3f} s, cpu {b[4]:.3f} s", flush=True)
+
+    # ---- one forced escalation
+    upd, _, _ = next(batches)
+    sess.cfg.escalate_cut_ratio = 0.0
+    torch.cuda.synchronize()
+    before = lp_score_rows.launches
+    res = sess.update(upd)
+    torch.cuda.synchronize()
+    esc_launches = lp_score_rows.launches - before
+    sess.cfg.escalate_cut_ratio = 1.6
+    _report_batch("6b forced escalation", res)
+    if not res.escalated or not res.feasible:
+        _fail(f"6b forced escalation: escalated {res.escalated}, feasible {res.feasible}")
+    total = lp_score_rows.launches
+    t = time.perf_counter()
+    fresh = partition(sess.store.csr_host(), PartitionerConfig(
+        k=k, preset="fast", refine_engine="dense", coarsest_factor=100, seed=0))
+    print(f"6b escalation: {res.seconds:.3f} s, lp_score_rows launches {esc_launches}, "
+          f"cut {res.cut} against a fresh partition() of the final graph: {fresh.cut} "
+          f"({res.cut / fresh.cut:.4f}; fresh run {time.perf_counter() - t:.3f} s)",
+          flush=True)
+    print(f"6b lp_score_rows launches over session start, stream and escalation: {total}",
+          flush=True)
+    if esc_launches <= 0 or total <= 0:
+        _fail("6b: the dynamic path never launched lp_score_rows")
+    return dict(secs=secs, esc_s=res.seconds, esc_launches=esc_launches, launches=total)
+
+
+def time_store_programs(torch, b, upd) -> None:
+    """CUDA-event times of the store's three device programs on the base
+    CSR ``b`` with one batch's overlay: the merge, the view (timed here
+    although the session's view gate refuses this node bucket) and a
+    vacuum pass that keeps every node."""
+    import numpy as np
+    from repro_torch.dynamic.store import (
+        merge_overlay_device,
+        overlay_view_device,
+        vacuum_device,
+    )
+    from repro_torch.graph import pow2
+
+    u, v, w = upd.arcs()
+    r = u.size
+    Rb = pow2(max(r, 8))
+
+    dev = b.indptr.device
+
+    def pad(a, dt):
+        return torch.from_numpy(np.concatenate([a, np.zeros(Rb - r, a.dtype)]).astype(dt)).to(dev)
+
+    ou, ov, ow = pad(u, np.int64), pad(v, np.int64), pad(w, np.float32)
+    Nb = b.indptr.shape[0] - 1
+    newid = torch.arange(Nb, device=dev)
+    keep = torch.ones(Nb, dtype=torch.bool, device=dev)
+    kw = dict(warmup=1, batches=3, reps=3)
+    ms = dict(
+        merge=_time_ms(lambda: merge_overlay_device(
+            b.src, b.indices, b.ew, ou, ov, ow, b.nw, b.n, b.m, r), torch, **kw),
+        view=_time_ms(lambda: overlay_view_device(
+            b.indptr, b.src, b.indices, b.ew, ou, ov, ow, b.n, b.m, r), torch, **kw),
+        vacuum=_time_ms(lambda: vacuum_device(
+            b.src, b.indices, b.ew, newid, keep, b.nw, b.m), torch, **kw),
+    )
+    print(f"6b store programs on the card (Mb={b.indices.shape[0]}, Rb={Rb}, Nb={Nb}), "
+          f"ms: {json.dumps({k_: round(v_, 4) for k_, v_ in ms.items()})}", flush=True)
+
+
+def check_dynamic_throughput(torch, warm: int = 2, timed: int = 8) -> None:
+    """Phase 6c: the reference benchmark's throughput rows — ba-16384,
+    k=4, ``SessionConfig.throughput`` at 1 % and then 0.1 % churn."""
+    import numpy as np
+    from repro_torch.dynamic import PartitionSession, SessionConfig
+    from repro_torch.graph import barabasi_albert
+
+    g = barabasi_albert(16384, 6, seed=3)
+    sess = PartitionSession(g, SessionConfig.throughput(k=4, seed=0))
+    for tag, nb, rng_seed, n_warm in (("1%", max(g.m // 2 // 200, 64), 11, warm),
+                                      ("0.1%", max(g.m // 2 // 2000, 8), 13, 1)):
+        batches = churn_batches(g, np.random.default_rng(rng_seed), nb, lambda: sess.n)
+        for _ in range(n_warm):
+            sess.update(next(batches)[0])
+        secs = []
+        for i in range(timed):
+            res = sess.update(next(batches)[0])
+            secs.append(res.seconds)
+            if not res.feasible:
+                _fail(f"6c {tag} batch {i} infeasible")
+        res, spans = _traced(torch, lambda: sess.update(next(batches)[0]))
+        _report_batch(f"6c {tag} traced batch", res)
+        print(f"6c {tag} traced batch spans_ms {json.dumps(spans)}", flush=True)
+        st = sess.stats()
+        print(f"6c ba-16384 k=4 throughput config, {tag} churn ({nb} adds + {nb} removals): "
+              f"per-update {_pcts(secs)}; view_hits {st['view_hits']}, "
+              f"compact_deferred {st['compact_deferred']}, compact_calls "
+              f"{st['compact_calls']}, escalations {st['escalations']}, cut {sess.cut}",
+              flush=True)
+
+
+def check_dynamic_group(torch, warm: int = 2, timed: int = 8) -> None:
+    """Phase 6d: the reference benchmark's multi-tenant row — 4 tenants
+    ba-4096 at k=4, repair_iters=2, ``4096 * 6 // 200`` random adds per
+    tenant per step — as a group and as the same sessions solo; labels
+    equal after every step."""
+    import numpy as np
+    from repro_torch.dynamic import GraphUpdate, PartitionSession, SessionConfig, SessionGroup
+    from repro_torch.graph import barabasi_albert
+
+    Ngt, Tn = 4096, 4
+    gs = {f"t{i}": barabasi_albert(Ngt, 6, seed=20 + i) for i in range(Tn)}
+
+    def tenants():
+        return {name: PartitionSession(gi, SessionConfig(k=4, seed=i, repair_iters=2))
+                for i, (name, gi) in enumerate(gs.items())}
+
+    solo, grp = tenants(), tenants()
+    group = SessionGroup(grp)
+    rng = np.random.default_rng(17)
+    nbt = max(Ngt * 6 // 200, 16)
+    t_solo, t_grp = [], []
+    for s in range(warm + timed + 1):
+        batch = []
+        for name in gs:
+            au = rng.integers(0, Ngt, nbt)
+            batch.append((name, GraphUpdate.add_edges(
+                au, (au + 1 + rng.integers(0, Ngt - 1, nbt)) % Ngt)))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for name, upd in batch:
+            solo[name].update(upd)
+        torch.cuda.synchronize()
+        dt_solo = (time.perf_counter() - t) / Tn
+        if s == warm + timed:
+            _, spans = _traced(torch, lambda: group.update_many(batch))
+            print(f"6d traced group step spans_ms {json.dumps(spans)}", flush=True)
+        else:
+            t = time.perf_counter()
+            group.update_many(batch)
+            torch.cuda.synchronize()
+            dt_grp = (time.perf_counter() - t) / Tn
+            if s >= warm:
+                t_solo.append(dt_solo)
+                t_grp.append(dt_grp)
+        for name in gs:
+            if not np.array_equal(solo[name].labels_np(), grp[name].labels_np()):
+                _fail(f"6d step {s} tenant {name}: group and solo labels differ")
+    print(f"6d {Tn} tenants ba-{Ngt} k=4, {nbt} adds each per step: group == solo after "
+          f"every step; per-update solo {_pcts(t_solo)}; group (amortized) {_pcts(t_grp)}; "
+          f"{json.dumps(group.stats_dict())}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -490,6 +886,14 @@ def main(argv=None) -> int:
 
     # ---- phase 5: the kernels' numbers on the main path's own input
     m = path_lp_score_rows(torch, g, rep.labels, k=16)
+
+    # ---- phase 6: the dynamic serving subsystem (this slice's path)
+    t = time.perf_counter()
+    check_dynamic_small(torch)
+    check_dynamic_full(torch, g)
+    check_dynamic_throughput(torch)
+    check_dynamic_group(torch)
+    print(f"phase 6: {time.perf_counter() - t:.1f} s", flush=True)
     kernels = [dict(
         name="lp_score_rows",
         route="cuda",

@@ -26,6 +26,9 @@ torch twin of ``repro.core.engine.LPEngine``):
   and arc tensors (a resident GraphDev is never materialized), gated by
   ``can_evolve_device``; ``evolve_oracle`` runs its numpy oracle on the
   same inputs.
+* **Incremental repair** — ``repair`` (the dynamic subsystem's hot path)
+  sweeps a pack of the affected region only, then the region-masked rounds
+  of :mod:`repro_torch.dynamic.repair`, behind a cut/feasibility guard.
 
 Every tensor lives on ``device`` (CUDA unless the caller asks for the
 CPU).  Engine state is per run; it is not thread-safe.
@@ -51,14 +54,15 @@ from ..graph.packing import (
     pad_pack,
     plan_chunks,
     plan_ell_rows,
+    plan_region_pack,
 )
 from ..kernels.lp_score.ops import dense_round_device
-from ..obs import RegistryBackedStats
+from ..obs import MetricsRegistry, RegistryBackedStats
 from ..obs import span as _obs_span
 from .contraction import CoarseMap, contract_device, packed_key_wbits
 from .evo_device import EvoGraph, best_row, evo_generation_step, evo_seed_step
 from .evolutionary import EvoInputs, evolve_batched_numpy, grow_rounds_bound
-from .label_propagation import lp_sweep, make_order
+from .label_propagation import hash_base_u32, lp_sweep, make_order
 from .metrics import cut_from_arcs
 
 __all__ = ["LPEngine", "EngineStats"]
@@ -103,7 +107,8 @@ class _DeviceEll:
 
 
 class EngineStats(RegistryBackedStats):
-    """Counters surfaced through ``PartitionReport.engine_stats``."""
+    """Counters surfaced through ``PartitionReport.engine_stats`` (and,
+    through the session's registry, ``PartitionSession.stats()``)."""
 
     _COUNTER_FIELDS = (
         "sweep_calls",
@@ -113,6 +118,7 @@ class EngineStats(RegistryBackedStats):
         "contract_calls",
         "evo_calls",            # batched GA steps (seed + generations)
         "gather_builds",        # device pack gathers (GraphDev levels)
+        "repair_calls",         # incremental repairs (dynamic subsystem)
         "h2d_bytes",            # host->device uploads the engine issued
         "d2h_bytes",            # device->host downloads (scalars + lazy
                                 # materializations of GraphDev/CoarseMap)
@@ -120,6 +126,7 @@ class EngineStats(RegistryBackedStats):
     _SET_FIELDS = (
         "buckets",              # distinct (C, N, E, A, W) sweep shapes
         "contract_buckets",     # distinct (Nb, Mb, wbits)
+        "repair_buckets",       # distinct repair shapes (the reference's keys)
     )
 
     @property
@@ -129,6 +136,10 @@ class EngineStats(RegistryBackedStats):
     @property
     def contract_bucket_count(self) -> int:
         return len(self.contract_buckets)
+
+    @property
+    def repair_bucket_count(self) -> int:
+        return len(self.repair_buckets)
 
 
 def _upload(a: np.ndarray, dev: torch.device, dtype=None) -> torch.Tensor:
@@ -145,6 +156,7 @@ class LPEngine:
         target_chunks: int = 64,
         seed: int = 0,
         pack_block: int = 8,
+        registry: Optional[MetricsRegistry] = None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -165,12 +177,14 @@ class LPEngine:
         self.A = pow2(max(n0 + 1, 8))
         self.C_bucket = 8                   # grows to the finest pack's C
         self.seed = int(seed)
-        self.stats = EngineStats()
+        self.stats = EngineStats(registry)
         self._packs: Dict[Tuple[int, str], _DevicePack] = {}
         self._arenas: Dict[int, _Arena] = {}
         self._ells: Dict[int, _DeviceEll] = {}
         self._cin: Dict[int, tuple] = {}    # padded contraction inputs (GraphNP)
         self._degs: Dict[int, tuple] = {}   # (graph, (Ab,) f32 degrees) for the GA
+        self._indptrs: Dict[int, tuple] = {}  # (graph, device row ptrs) of a GraphNP
+        self._repair_E = 0                  # sticky region-pack edge bucket
         self._iota_cache: Optional[torch.Tensor] = None
         self._exact_weights: Optional[bool] = None  # lazily scanned from g0
 
@@ -369,6 +383,14 @@ class LPEngine:
         self._ells = {k: v for k, v in self._ells.items() if k in keep_ids}
         self._cin = {k: v for k, v in self._cin.items() if k in keep_ids}
         self._degs = {k: v for k, v in self._degs.items() if k in keep_ids}
+        self._indptrs = {k: v for k, v in self._indptrs.items() if k in keep_ids}
+
+    def carry_from(self, old: "LPEngine") -> None:
+        """Adopt a predecessor engine's stats object and sticky repair edge
+        bucket (the dynamic session's node-growth rebuild), so counters and
+        bucket sets stay cumulative across the swap."""
+        self.stats = old.stats
+        self._repair_E = max(self._repair_E, old._repair_E)
 
     # ------------------------------------------------------------------ sweeps
 
@@ -508,6 +530,197 @@ class LPEngine:
                     and float(g.nw.sum()) < 2**24
                 )
         return self._exact_weights
+
+    # ---------------------------------------------------------------- repair
+
+    def _indptr_dev(self, g: AnyGraph) -> torch.Tensor:
+        """Device CSR row pointers for region gathers: a GraphDev carries
+        its own, a GraphNP uploads its (n + 1) pointers once."""
+        if isinstance(g, GraphDev):
+            return g.indptr
+        hit = self._indptrs.get(id(g))
+        if hit is not None and hit[0] is g:
+            return hit[1]
+        t = _upload(g.indptr, self.device, torch.int64)
+        self.stats.h2d_bytes += (g.n + 1) * 4
+        self._indptrs[id(g)] = (g, t)
+        return t
+
+    def repair(
+        self,
+        g: AnyGraph,
+        labels: Union[np.ndarray, torch.Tensor],
+        touched: np.ndarray,
+        k: int,
+        U: float,
+        *,
+        hops: int = 2,
+        iters: int = 6,
+        gain_rounds: int = 2,
+        balance_rounds: int = 3,
+        seed: int = 0,
+        hop_degree_cap: Optional[int] = None,
+        adjacency: Optional[Tuple[torch.Tensor, ...]] = None,
+    ) -> Tuple[torch.Tensor, int, float, np.ndarray]:
+        """Incremental size-constrained repair after a graph mutation.
+
+        Expands the ``hops``-hop affected region around the ``touched`` node
+        ids on the device, packs only the region's nodes into sweep chunks
+        (host plan O(region), device gather O(region arcs) from the resident
+        CSR), runs the chunked sweep in refine mode against the exact global
+        block weights and ``U = L_max``, then region-masked gain and
+        balance-repair rounds.  A guard keeps the repaired labels only if
+        the cut did not worsen and the balance bound did not degrade, or if
+        they restored a violated bound.
+
+        ``hop_degree_cap``: hops past the first only expand through nodes of
+        degree <= cap (``None`` or <= 0 disables it).  ``adjacency``
+        substitutes device ``(indptr, src, dst, ew)`` tensors — a store
+        view of base CSR + uncompacted overlay — for ``g``'s own arcs in
+        every arc consumer; ``g`` still gives the node set, node weights and
+        cache identity.  Every consumer is insensitive to within-row arc
+        order and inert padding, so repairing on a view equals compacting
+        first.
+
+        Returns ``(arena labels, region size, cut, block weights)`` for the
+        labels it returns; labels outside the region are those of the
+        input, and a rejected repair returns the input tensor itself.
+        """
+        from ..dynamic.repair import (
+            TAG_DYN_GAIN,
+            TAG_DYN_GAIN_GATE,
+            balance_rounds_device,
+            expand_region_device,
+            gain_round_device,
+        )
+
+        self.stats.repair_calls += 1
+        n = g.n
+        dev = self.device
+        ar = self._arena(g)
+        if adjacency is not None:
+            ip, a_src, a_dst, a_ew = adjacency[:4]
+        else:
+            ip = self._indptr_dev(g)
+            a_src, a_dst, a_ew = ar.src, ar.dst, ar.ew
+
+        def cut_now(lab_: torch.Tensor) -> float:
+            return float(cut_from_arcs(lab_, a_src, a_dst, a_ew))
+
+        lab = self.to_arena(labels, n, fill=k)
+        t_ids = np.unique(np.asarray(touched, dtype=np.int64))
+        t_ids = t_ids[(t_ids >= 0) & (t_ids < n)]
+        if t_ids.size == 0:
+            return lab, 0, cut_now(lab), self.block_weights(g, lab, k)
+        # ---- h-hop affected region (device frontier expansion) ----
+        Tb = pow2(max(t_ids.size, 8))
+        tpad = np.full(Tb, n, np.int64)
+        tpad[: t_ids.size] = t_ids
+        self.stats.h2d_bytes += Tb * 4
+        # None and <= 0 both disable the cap
+        cap = (0x7FFFFFFF if hop_degree_cap is None or hop_degree_cap <= 0
+               else int(hop_degree_cap))
+        self.stats.repair_buckets.add(
+            ("frontier", Tb, a_src.shape[0], ip.shape[0], self.A))
+        with _obs_span("repair.expand", cat="repair",
+                       touched=int(t_ids.size), hops=int(hops)):
+            mask = expand_region_device(
+                _upload(tpad, dev), a_src, a_dst, ip, n, hops, cap, A=self.A
+            )
+            mask_np = mask[:n].cpu().numpy()
+        self.stats.d2h_bytes += mask_np.nbytes
+        region = np.flatnonzero(mask_np)
+        if region.size == 0:
+            return lab, 0, cut_now(lab), self.block_weights(g, lab, k)
+        # ---- region pack: host O(region) plan, device O(region m) gather
+        order = np.random.default_rng(seed).permutation(region).astype(np.int64)
+        if adjacency is not None or isinstance(g, GraphDev):
+            # region degrees gathered on the device: a fresh store handle's
+            # host degree cache is cold, and O(region) is all the plan needs
+            oi = _upload(order, dev)
+            self.stats.h2d_bytes += order.size * 4
+            deg_r = (ip[oi + 1] - ip[oi]).cpu().numpy().astype(np.int64)
+            self.stats.d2h_bytes += deg_r.nbytes // 2
+        else:
+            deg_r = g.degrees()[order]
+        nodes, node_valid, C, N, E = plan_region_pack(
+            deg_r, order, n, max_nodes=self.N,
+            max_edges=self._e_request, block=self.pack_block,
+        )
+        Cb = pow2(C)
+        Eb = max(self._repair_E, -(-E // 512) * 512)  # sticky, like E_floor
+        self._repair_E = Eb
+        nodes = np.pad(nodes, ((0, Cb - C), (0, self.N - N)), constant_values=n)
+        node_valid = np.pad(node_valid, ((0, Cb - C), (0, self.N - N)))
+        nodes_d = _upload(nodes, dev, torch.int64)
+        nv_d = _upload(node_valid, dev)
+        self.stats.h2d_bytes += nodes.size * 4 + node_valid.nbytes
+        self.stats.repair_buckets.add(
+            ("gather", nodes.shape, ip.shape[0], a_dst.shape[0], Eb))
+        with _obs_span("repair.gather", cat="repair",
+                       region=int(region.size)) as sp:
+            edge_dst, edge_w, edge_slot, edge_valid = gather_pack_device(
+                nodes_d, nv_d, ip, a_dst, a_ew, n, E=Eb
+            )
+            sp.sync_on(edge_valid)
+        dp = _DevicePack(
+            graph=g, nodes=nodes_d, node_valid=nv_d, edge_dst=edge_dst,
+            edge_w=edge_w, edge_src_slot=edge_slot, edge_valid=edge_valid,
+            num_chunks=C, shape=(Cb, self.N, Eb),
+        )
+        # ---- LP sweeps against exact global block weights ----
+        bw = torch.zeros(k + 1, dtype=torch.float32, device=dev).index_add_(
+            0, torch.clamp(lab, max=k).to(torch.int64), ar.nw_arena
+        )
+        bw_old_max = float(bw[:k].max())
+        before_cut = cut_now(lab)
+        w0 = bw.clone()
+        w0[k] = float("inf")
+        self.stats.repair_buckets.add(("sweep", dp.shape, self.A, k + 1, iters))
+        with _obs_span("repair.sweep", cat="repair", iters=int(iters)) as sp:
+            out, _, _ = self._sweep(
+                dp, lab, w0, ar.nw_arena,
+                torch.zeros(1, dtype=torch.int32, device=dev), U, seed, k,
+                iters=iters, refine_mode=True, use_restrict=False,
+                permute_chunks=True,
+            )
+            sp.sync_on(out)
+        # ---- region-masked gain + balance rounds ----
+        Kb = k + 1
+        with _obs_span("repair.gain", cat="repair", rounds=int(gain_rounds)) as sp:
+            for r in range(gain_rounds):
+                self.stats.repair_buckets.add(("gain", self.A, a_src.shape[0], Kb))
+                out = gain_round_device(
+                    a_src, a_dst, a_ew, ar.nw_arena, out, mask, n, k, U,
+                    hash_base_u32(seed, r, TAG_DYN_GAIN),
+                    hash_base_u32(seed, r, TAG_DYN_GAIN_GATE), Kb=Kb,
+                )
+            sp.sync_on(out)
+        if balance_rounds:
+            self.stats.repair_buckets.add(("balance", self.A, Kb, balance_rounds))
+            with _obs_span("repair.balance", cat="repair",
+                           rounds=int(balance_rounds)) as sp:
+                out = balance_rounds_device(
+                    ar.nw_arena, out, mask, n, k, U, seed & 0x7FFFFFFF,
+                    Kb=Kb, rounds=balance_rounds,
+                )
+                sp.sync_on(out)
+        # ---- guard: keep the repaired labels only if the cut did not worsen
+        # AND the balance bound did not degrade, or if they restored a
+        # violated bound — repair never trades feasibility for cut
+        bw_new = torch.zeros(k + 1, dtype=torch.float32, device=dev).index_add_(
+            0, torch.clamp(out, max=k).to(torch.int64), ar.nw_arena
+        )
+        bw_new_max = float(bw_new[:k].max())
+        after_cut = cut_now(out)
+        self.stats.d2h_bytes += 16  # the guard's two cut + two bw scalars
+        ok_cut = (
+            after_cut <= before_cut
+            and bw_new_max <= max(bw_old_max, U + 1e-6)
+        )
+        if ok_cut or bw_old_max > U >= bw_new_max:
+            return out, int(region.size), after_cut, bw_new[:k].cpu().numpy()
+        return lab, int(region.size), before_cut, bw[:k].cpu().numpy()
 
     # ---------------------------------------------------------- evolutionary
 
@@ -741,6 +954,8 @@ class LPEngine:
             evo_calls=self.stats.evo_calls,
             contract_bucket_count=self.stats.contract_bucket_count,
             gather_builds=self.stats.gather_builds,
+            repair_calls=self.stats.repair_calls,
+            repair_bucket_count=self.stats.repair_bucket_count,
             h2d_bytes=self.stats.h2d_bytes,
             d2h_bytes=self.stats.d2h_bytes,
             arena=self.A,

@@ -138,20 +138,20 @@ def _chunk_perm(seed: int, C: int, num_chunks: int) -> np.ndarray:
 
 
 def lp_sweep_batched(
-    nodes: torch.Tensor,          # (C, N) int64, padded with n
-    node_valid: torch.Tensor,     # (C, N) bool
-    edge_dst: torch.Tensor,       # (C, E) int64, padded with n
-    edge_w: torch.Tensor,         # (C, E) float32
-    edge_src_slot: torch.Tensor,  # (C, E) int64
-    edge_valid: torch.Tensor,     # (C, E) bool
+    nodes: torch.Tensor,          # (C, N) int64, padded with n; or (B, C, N)
+    node_valid: torch.Tensor,     # (C, N) bool; or (B, C, N)
+    edge_dst: torch.Tensor,       # (C, E) int64, padded with n; or (B, C, E)
+    edge_w: torch.Tensor,         # (C, E) float32; or (B, C, E)
+    edge_src_slot: torch.Tensor,  # (C, E) int64; or (B, C, E)
+    edge_valid: torch.Tensor,     # (C, E) bool; or (B, C, E)
     labels: torch.Tensor,         # (B, A) integer arena rows, A >= n + 1
     weights: torch.Tensor,        # (B, W) float32; slots >= num_labels hold +inf
-    nw_ext: torch.Tensor,         # (A,) float32 node weights; 0 beyond n
+    nw_ext: torch.Tensor,         # (A,) float32 node weights, 0 beyond n; or (B, A)
     restrict: torch.Tensor,       # (A,) int32, or a (1,) dummy
-    U: float,
+    U,                            # float, or one per row
     seeds: Sequence[int],         # one per row: drives that row's hashes
     num_labels: int,              # T: n in cluster mode, k in refine mode
-    num_chunks: int,              # live chunks; <= C (the rest is padding)
+    num_chunks,                   # live chunks (<= C); an int, or one per row
     *,
     iters: int,
     refine_mode: bool,
@@ -160,33 +160,49 @@ def lp_sweep_batched(
 ):
     """``iters`` sweeps over the live chunks for each of ``B`` label rows;
     returns ``(labels, weights, moves)`` with ``moves`` per row (new
-    tensors — the inputs are not modified).  Rows share the pack and the
-    node weights and are otherwise independent: at step ``c`` row ``b``
-    moves the nodes of chunk ``perm_b[c]``, and every sort, reduction and
-    scatter runs along the row axis, so one step costs the same launches
-    for the whole batch."""
+    tensors — the inputs are not modified).  At step ``c`` row ``b`` moves
+    the nodes of chunk ``perm_b[c]``, and every sort, reduction and scatter
+    runs along the row axis, so one step costs the same launches for the
+    whole batch.
+
+    Rows share the pack, the node weights, ``U`` and the chunk count (the
+    batched GA), or — when the pack tensors carry a leading row axis — each
+    row has its own pack, node weights, ``U`` and chunk count (the
+    ``SessionGroup`` lanes: independent graphs of one shape bucket).  A row
+    with fewer live chunks than the longest visits its padded chunks in the
+    remaining steps, which move nothing, as under the reference's ``vmap``
+    of a loop with a per-lane trip count."""
     dev = labels.device
     B, A = labels.shape
-    C, N = nodes.shape
+    C, N = nodes.shape[-2:]
+    lanes = nodes.dim() == 3
     T = int(num_labels)
     seeds = [int(s) & _M32 for s in seeds]
-    U = torch.tensor(float(np.float32(U)), dtype=torch.float32, device=dev)
+    nchunks = ([int(c) for c in num_chunks] if isinstance(num_chunks, (list, tuple))
+               else [int(num_chunks)] * B)
+    if isinstance(U, (list, tuple)):
+        U = torch.tensor(np.asarray(U, np.float32), device=dev)[:, None]
+    else:
+        U = torch.tensor(float(np.float32(U)), dtype=torch.float32, device=dev)
+    nw_rows = nw_ext.expand(B, -1)
     labels = labels.clone()
     weights = weights.clone()
     moves = torch.zeros(B, dtype=torch.int64, device=dev)
     if permute_chunks:
-        perm = np.stack([_chunk_perm(s, C, num_chunks) for s in seeds])
+        perm = np.stack([_chunk_perm(s, C, nc) for s, nc in zip(seeds, nchunks)])
     else:
         perm = np.broadcast_to(np.arange(C), (B, C))
-    perm = np.array(perm[:, :num_chunks])
-    # rows that visit one chunk per step read views of it; otherwise each
-    # row gathers its own chunk
-    shared = bool((perm == perm[:1]).all())
+    steps = max(nchunks)
+    perm = np.array(perm[:, :steps])
+    # rows that visit one chunk of one shared pack per step read views of
+    # it; otherwise each row gathers its own chunk
+    shared = not lanes and bool((perm == perm[:1]).all())
     perm_t = None if shared else torch.from_numpy(perm).to(dev)
+    row = torch.arange(B, device=dev)
 
     def bases(extra):
-        """(iters, B, num_chunks) hash bases: the row's per-iteration base
-        plus the chunk id, as the reference adds them."""
+        """(iters, B, steps) hash bases: the row's per-iteration base plus
+        the chunk id, as the reference adds them."""
         b = np.array([[hash_base_u32(s, it, extra) for s in seeds]
                       for it in range(iters)], dtype=np.int64)
         return torch.from_numpy((b[:, :, None] + perm[None]) & _M32).to(dev)
@@ -194,7 +210,7 @@ def lp_sweep_batched(
     base_jit = bases(0x51ED2701)
     base_gate = bases(0x2545F491) if refine_mode else None
     for it in range(iters):
-        for c in range(num_chunks):
+        for c in range(steps):
             if shared:
                 cc = int(perm[0, c])
                 nd, ndv, dst, ew, slot, ok = (
@@ -204,7 +220,7 @@ def lp_sweep_batched(
             else:
                 cc = perm_t[:, c]
                 nd, ndv, dst, ew, slot, ok = (
-                    t[cc] for t in
+                    (t[row, cc] if lanes else t[cc]) for t in
                     (nodes, node_valid, edge_dst, edge_w, edge_src_slot, edge_valid)
                 )
             if use_restrict:
@@ -234,7 +250,7 @@ def lp_sweep_batched(
             own = labels.gather(1, nd).to(torch.int64)
             rs = torch.clamp(run_slot, max=N - 1)
             own_r = own.gather(1, rs)
-            node_w_r = nw_ext[nd.gather(1, rs)]
+            node_w_r = nw_rows.gather(1, nd.gather(1, rs))
             cand_w = weights.gather(1, torch.clamp(run_lbl, max=T))
             fits = cand_w + node_w_r <= U
             if refine_mode:
@@ -263,7 +279,7 @@ def lp_sweep_batched(
             new_lbl = torch.where(ndv & (win < T), win, own)
 
             moved = ndv & (new_lbl != own)
-            nwv = nw_ext[nd]
+            nwv = nw_rows.gather(1, nd)
             if refine_mode:
                 # Influx gating: every node of a chunk sees the same stale
                 # block weights, so cap each block's net inflow at its

@@ -20,9 +20,12 @@ __all__ = [
 def cut_from_arcs(labels: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                   ew: torch.Tensor) -> torch.Tensor:
     """Edge cut from flat arc tensors: float32, one per label row (``labels``
-    is ``(A,)`` or ``(B, A)``).  Trailing zero-weight arc padding is inert;
-    for integral weights below 2^24 the float32 sum is exact in any order."""
-    diff = labels[..., src] != labels[..., dst]
+    is ``(A,)`` or ``(B, A)``; the arc tensors are ``(M,)``, shared by every
+    row, or ``(B, M)``, one arc set per row).  Trailing zero-weight arc
+    padding is inert; for integral weights below 2^24 the float32 sum is
+    exact in any order."""
+    shape = labels.shape[:-1] + src.shape[-1:]
+    diff = labels.gather(-1, src.expand(shape)) != labels.gather(-1, dst.expand(shape))
     return torch.sum(torch.where(diff, ew, 0.0), dim=-1) / 2.0
 
 

@@ -30,6 +30,7 @@ __all__ = [
     "from_reference",
     "pow2",
     "to_device_csr",
+    "validate",
 ]
 
 
@@ -272,3 +273,23 @@ def to_device_csr(
         ew_integral=bool(np.all(g.ew == np.round(g.ew))) if m else True,
         on_materialize=on_materialize,
     )
+
+
+def validate(g: GraphNP) -> None:
+    """Raise AssertionError if the CSR structure is inconsistent or
+    asymmetric (a copy of the reference's ``validate``)."""
+    assert g.indptr[0] == 0 and g.indptr[-1] == g.m
+    assert np.all(np.diff(g.indptr) >= 0)
+    assert g.nw.shape == (g.n,)
+    assert g.ew.shape == (g.m,)
+    if g.m == 0:
+        return
+    assert g.indices.min() >= 0 and g.indices.max() < g.n
+    # symmetry: the multiset of (u, v, w) must equal the multiset of (v, u, w)
+    src = g.arc_sources().astype(np.int64)
+    dst = g.indices.astype(np.int64)
+    fwd = np.lexsort((dst, src))
+    bwd = np.lexsort((src, dst))
+    assert np.array_equal(src[fwd], dst[bwd])
+    assert np.array_equal(dst[fwd], src[bwd])
+    np.testing.assert_allclose(g.ew[fwd], g.ew[bwd], rtol=1e-5)

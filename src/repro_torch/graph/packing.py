@@ -7,6 +7,8 @@ Host planners (numpy, array-for-array identical to ``repro.graph.packing``):
   and edge counts; the sweep walks chunks sequentially and moves the
   nodes of one chunk synchronously;
 * :func:`pad_pack` — pad a pack to a larger bucket shape (inert);
+* :func:`plan_region_pack` — the chunk plan of a node subset (the dynamic
+  repairer's affected region);
 * :func:`plan_ell_rows` / :func:`ell_pack` — the row-split ELL layout of the
   dense refinement (a node of degree d owns ``ceil(d / width)`` rows).
 
@@ -36,6 +38,7 @@ __all__ = [
     "plan_chunks",
     "layout_nodes",
     "pack_chunks",
+    "plan_region_pack",
     "gather_pack_device",
     "gather_ell_device",
     "plan_ell_rows",
@@ -206,48 +209,85 @@ def pad_pack(pack: ChunkPack, C: int, N: int, E: int) -> ChunkPack:
     )
 
 
+def plan_region_pack(
+    deg_ordered: np.ndarray,
+    order: np.ndarray,
+    n: int,
+    max_nodes: int = 4096,
+    max_edges: int = 32768,
+    block: int = 8,
+):
+    """Chunk plan + node layout for a SUBSET of the graph's nodes (the
+    dynamic repairer's region pack).
+
+    ``order`` holds region node ids, ``deg_ordered`` their degrees in that
+    order; the rest of the graph takes part in the sweep only as (label,
+    weight) context.  Reuses :func:`plan_chunks` / :func:`layout_nodes` with
+    the region size as the packed-node count but the GLOBAL ``n`` as the
+    slot sentinel, so the layout feeds :func:`gather_pack_device` against
+    the full resident CSR.  Returns ``(nodes, node_valid, C, N, E)``.
+    """
+    r = int(order.shape[0])
+    node_chunk, C, N, E = plan_chunks(
+        deg_ordered, r, max_nodes=max_nodes, max_edges=max_edges, block=block
+    )
+    nodes, node_valid = layout_nodes(order, node_chunk, C, N, n)
+    return nodes, node_valid, C, N, E
+
+
 def gather_pack_device(
     nodes: torch.Tensor,       # (C, N) int64 — host-planned layout, sentinel n
     node_valid: torch.Tensor,  # (C, N) bool
     indptr: torch.Tensor,      # (Nb + 1,) int64 — device CSR, rows >= n hold m
     indices: torch.Tensor,     # (Mb,) int64
     ew: torch.Tensor,          # (Mb,) float32
-    n: int,
+    n,
     *,
     E: int,
 ):
     """Device edge fill for a chunk plan: the O(m) half of packing.
 
     Emits ``(edge_dst, edge_w, edge_src_slot, edge_valid)`` equal to what
-    :func:`pack_chunks` produces on the materialized graph.
+    :func:`pack_chunks` produces on the materialized graph.  With a leading
+    lane axis — ``nodes``/``node_valid`` ``(B, C, N)``, ``indptr``,
+    ``indices``, ``ew`` ``(B, ...)`` and ``n`` a ``(B,)`` tensor — each lane
+    gathers from its own CSR and the outputs are ``(B, C, E)``.
     """
+    if nodes.dim() == 2:
+        out = gather_pack_device(
+            nodes[None], node_valid[None], indptr[None], indices[None], ew[None],
+            torch.tensor([int(n)], device=nodes.device), E=E,
+        )
+        return tuple(t[0] for t in out)
     dev = nodes.device
-    C, N = nodes.shape
-    last = indptr.shape[0] - 1
-    starts = indptr[nodes]                                      # (C, N)
-    ends = indptr[torch.clamp(nodes + 1, max=last)]
+    B, C, N = nodes.shape
+    last = indptr.shape[-1] - 1
+    flat_nodes = nodes.reshape(B, C * N)
+    starts = indptr.gather(1, flat_nodes).view(B, C, N)
+    ends = indptr.gather(1, torch.clamp(flat_nodes + 1, max=last)).view(B, C, N)
     deg = torch.where(node_valid, ends - starts, 0)
-    cum = torch.cumsum(deg, dim=1)
-    tot = cum[:, -1]
+    cum = torch.cumsum(deg, dim=2)
+    tot = cum[..., -1]
     e_iota = torch.arange(E, dtype=torch.int64, device=dev)
     # slot owning arc e == (#slot starts <= e) - 1: one mark per slot at its
     # first-arc offset, then a running count along the arc axis (empty
     # slots mark the same offset as their successor)
     start_off = cum - deg
-    flat = (torch.arange(C, dtype=torch.int64, device=dev)[:, None] * E
-            + start_off).reshape(-1)
+    flat = (torch.arange(B * C, dtype=torch.int64, device=dev)[:, None] * E
+            + start_off.reshape(B * C, N)).reshape(-1)
     keep = (node_valid & (start_off < E)).reshape(-1)
-    flat = torch.where(keep, flat, C * E)        # slot C * E is dropped
-    marks = torch.zeros(C * E + 1, dtype=torch.int64, device=dev)
+    flat = torch.where(keep, flat, B * C * E)    # slot B * C * E is dropped
+    marks = torch.zeros(B * C * E + 1, dtype=torch.int64, device=dev)
     marks.index_add_(0, flat, torch.ones_like(flat))
-    slot = torch.cumsum(marks[: C * E].reshape(C, E), dim=1) - 1
-    valid_e = e_iota[None, :] < tot[:, None]
+    slot = torch.cumsum(marks[: B * C * E].view(B, C, E), dim=2) - 1
+    valid_e = e_iota < tot[..., None]
     slot_c = torch.clamp(slot, 0, N - 1)
-    before = torch.gather(start_off, 1, slot_c)
-    pos = torch.gather(starts, 1, slot_c) + (e_iota[None, :] - before)
-    pos = torch.where(valid_e, pos, 0)
-    edge_dst = torch.where(valid_e, indices[pos], n)
-    edge_w = torch.where(valid_e, ew[pos], 0.0)
+    before = torch.gather(start_off, 2, slot_c)
+    pos = torch.gather(starts, 2, slot_c) + (e_iota - before)
+    pos = torch.where(valid_e, pos, 0).view(B, C * E)
+    n_t = torch.as_tensor(n, device=dev).view(B, 1, 1)
+    edge_dst = torch.where(valid_e, indices.gather(1, pos).view(B, C, E), n_t)
+    edge_w = torch.where(valid_e, ew.gather(1, pos).view(B, C, E), 0.0)
     edge_src_slot = torch.where(valid_e, slot_c, 0)
     return edge_dst, edge_w, edge_src_slot, valid_e
 

@@ -1,6 +1,7 @@
 """repro_torch cases that need an NVIDIA GPU: each hand-written CUDA kernel
-against its plain PyTorch version on the card, and the dense round's and
-the batched GA's card paths against their CPU paths.  Marked ``cuda``; they skip without a device.
+against its plain PyTorch version on the card, and the dense round's, the
+batched GA's and the dynamic serving subsystem's card paths against their
+CPU paths.  Marked ``cuda``; they skip without a device.
 This file imports neither jax nor the reference package, so it runs on a
 GPU machine that has only PyTorch:
 
@@ -124,3 +125,79 @@ def test_batched_ga_card_matches_cpu():
     assert on_card.is_cuda
     assert torch.equal(on_card.cpu(), want)
     np.testing.assert_array_equal(want.numpy(), cpu.evolve_oracle(g, cfg))
+
+
+def _churn(g, rng, nb, n):
+    """``nb`` random adds plus ``nb`` removals of surviving original edges."""
+    from repro_torch.dynamic import GraphUpdate
+
+    src0 = g.arc_sources()
+    removed = src0 >= g.indices
+    while True:
+        au = rng.integers(0, n, nb)
+        av = (au + 1 + rng.integers(0, n - 1, nb)) % n
+        cand = rng.permutation(np.flatnonzero(~removed))[:nb]
+        removed[cand] = True
+        yield GraphUpdate.add_edges(au, av).merged(
+            GraphUpdate.remove_edges(src0[cand], g.indices[cand]))
+
+
+def _assert_same(a, b, sa, sb):
+    np.testing.assert_array_equal(sa.labels_np(), sb.labels_np())
+    for f in ("cut", "region_size", "imbalance", "feasible", "escalated", "used_view"):
+        assert getattr(a, f) == getattr(b, f), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("preset", ["default", "throughput"])
+def test_session_stream_card_matches_cpu(preset):
+    """A small mixed stream (edge churn, 32 added nodes, 24 of them wired
+    in, the 8 isolated ones removed) gives the same labels, cuts and region
+    sizes on the card as on the CPU after every batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.dynamic import GraphUpdate, PartitionSession, SessionConfig
+
+    g = barabasi_albert(1024, 4, seed=5)
+    rng = np.random.default_rng(1)
+    churn = _churn(g, rng, 24, g.n)
+    new = np.arange(g.n, g.n + 24)
+    acts = [next(churn), next(churn),
+            GraphUpdate.add_nodes(np.ones(32, np.int64)).merged(next(churn)),
+            GraphUpdate.add_edges(new, rng.integers(0, g.n, 24)).merged(next(churn)),
+            next(churn), np.arange(g.n + 24, g.n + 32)]
+    make = (SessionConfig.throughput if preset == "throughput" else SessionConfig)
+    kw = dict(compact_fraction=0.02) if preset == "throughput" else {}
+    card = PartitionSession(g, make(k=4, seed=0, **kw), device="cuda")
+    cpu = PartitionSession(g, make(k=4, seed=0, **kw), device="cpu")
+    assert card.store.base.indptr.is_cuda and card.labels.is_cuda
+    for act in acts:
+        if isinstance(act, np.ndarray):
+            a, b = card.remove_nodes(act), cpu.remove_nodes(act)
+        else:
+            a, b = card.update(act), cpu.update(act)
+        _assert_same(a, b, card, cpu)
+    assert card.n == g.n + 24 and card.labels.is_cuda
+
+
+@pytest.mark.cuda
+def test_group_card_matches_cpu():
+    """A three-tenant group (one tenant at k = 3) on the card equals the same
+    group on the CPU, lane for lane, after every step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.dynamic import PartitionSession, SessionConfig, SessionGroup
+
+    graphs = [(barabasi_albert(1024, 4, seed=5 + i), k) for i, k in enumerate((4, 4, 3))]
+    groups = {d: SessionGroup({
+        f"t{i}": PartitionSession(gi, SessionConfig(k=k, seed=i, repair_iters=2), device=d)
+        for i, (gi, k) in enumerate(graphs)}) for d in ("cuda", "cpu")}
+    streams = [_churn(gi, np.random.default_rng(20 + i), 16, gi.n)
+               for i, (gi, _) in enumerate(graphs)]
+    for _ in range(3):
+        batch = [(f"t{i}", next(st)) for i, st in enumerate(streams)]
+        res = {d: grp.update_many(batch) for d, grp in groups.items()}
+        for name in res["cpu"]:
+            _assert_same(res["cuda"][name], res["cpu"][name],
+                         groups["cuda"].sessions[name], groups["cpu"].sessions[name])
+    assert groups["cuda"].stats.lanes_repaired == 9
