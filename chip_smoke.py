@@ -33,8 +33,19 @@ Phases, each of which fails the run:
    ``lp_score_rows`` launches; (c) the throughput config on the reference
    benchmark's ba-16384 at 1 % and 0.1 % churn; (d) the reference
    benchmark's four-tenant group against the same sessions solo (labels
-   equal after every step).  Then one JSON line with each kernel's numbers
-   and, last, the device line.
+   equal after every step);
+7. the deployment and fault-tolerance stack (``repro_torch.deploy``,
+   ``repro_torch.resilience``): (a) the full DR stack (replicated shards,
+   transactions, WAL and checkpoints) on ba-1024 over a mangled stream
+   with each fault class injected once, card == CPU after every submit,
+   heal() and restore; (b) the same stack around 6b's session at full
+   width: shard parity with the numpy oracle, reassembly, ghost exchange,
+   comm metrics, commit latencies and their split, one audit pass, one
+   checkpoint, the device programs' times, failover, heal, one forced
+   escalation (``lp_score_rows`` launches) and a restore whose digest
+   equals the live one; (c) the reference benchmark's ``deploy_hot`` and
+   (d) its ``resilience_dr``.  Then one JSON line with each kernel's
+   numbers and, last, the device line.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--scale``/``--edge-factor`` shrink the end-to-end graph for quick runs).
@@ -46,8 +57,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -698,7 +711,8 @@ def check_dynamic_full(torch, g, warm: int = 2, timed: int = 8) -> dict:
           flush=True)
     if esc_launches <= 0 or total <= 0:
         _fail("6b: the dynamic path never launched lp_score_rows")
-    return dict(secs=secs, esc_s=res.seconds, esc_launches=esc_launches, launches=total)
+    return dict(secs=secs, esc_s=res.seconds, esc_launches=esc_launches, launches=total,
+                sess=sess)
 
 
 def time_store_programs(torch, b, upd) -> None:
@@ -823,6 +837,591 @@ def check_dynamic_group(torch, warm: int = 2, timed: int = 8) -> None:
           f"{json.dumps(group.stats_dict())}", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 7: the deployment and fault-tolerance stack
+# --------------------------------------------------------------------------
+
+# the fields of a result that read a clock, and so differ between two runs
+_CLOCK_FIELDS = ("seconds", "t_mono", "span_ms")
+
+
+def _dr_stack(sess, directory: str, *, audit_cadence: int, checkpoint_every: int,
+              replicas: int = 2, halo: int = 1):
+    """``ReplicatedDeployment`` + ``ResilientSession`` + ``DurableSession``
+    over ``sess``, checkpointing into ``directory``."""
+    from repro_torch.deploy import ReplicatedDeployment
+    from repro_torch.resilience import (
+        DurableConfig, DurableSession, ResilientConfig, ResilientSession,
+    )
+
+    dep = ReplicatedDeployment(sess, halo=halo, replicas=replicas)
+    rs = ResilientSession(sess, deployment=dep, cfg=ResilientConfig(audit_cadence=audit_cadence))
+    return DurableSession(rs, DurableConfig(directory=directory,
+                                            checkpoint_every=checkpoint_every))
+
+
+def _digest_diff(a: dict, b: dict):
+    """The first field in which two host digests differ, or None."""
+    import numpy as np
+
+    for key in a:
+        if not np.array_equal(a[key], b[key]):
+            return key
+    return None
+
+
+def _shards_diff(xs, ys):
+    """The first (block, field) in which two shard lists differ, or None:
+    every field of ``BlockShardNP``, arrays with their dtypes; ``ys`` may
+    hold host views."""
+    import dataclasses
+
+    import numpy as np
+
+    if len(xs) != len(ys):
+        return (None, "count")
+    for x, y in zip(xs, ys):
+        hx = x.host()
+        hy = y.host() if hasattr(y, "host") else y
+        for f in dataclasses.fields(hx):
+            a, b = getattr(hx, f.name), getattr(hy, f.name)
+            if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+                same = (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                        and a.dtype == b.dtype and np.array_equal(a, b))
+            else:
+                same = a == b
+            if not same:
+                return (hx.block, f.name)
+    return None
+
+
+def _tx_key(x):
+    """A ``TxResult`` as a tuple of every field but the clock's, with its
+    ``UpdateResult``, ``AuditReport`` and follow-ups taken the same way."""
+    import dataclasses
+
+    if dataclasses.is_dataclass(x):
+        return tuple((f.name, _tx_key(getattr(x, f.name))) for f in dataclasses.fields(x)
+                     if f.name not in _CLOCK_FIELDS)
+    if isinstance(x, (list, tuple)):
+        return tuple(_tx_key(v) for v in x)
+    return x
+
+
+def _inject_7a(i: int, inj, ds):
+    """Phase 7a's fault before submit ``i``: each class of the injector
+    once.  Returns the fault's kind (None when there was nothing to hit)."""
+    import numpy as np
+
+    sess, dep = ds.session, ds.rs.deployment
+    f = None
+    if i in (1, 5, 10):
+        # corruption outside a transaction: a clean version for heal()
+        ds.rs.snapshots.take()
+    if i == 1:
+        f = inj.corrupt_labels(sess, count=2)
+    elif i == 2:
+        f = inj.corrupt_shard(dep, block=0)
+        dep.read_block(0)                 # fails over to the audited standby
+    elif i == 3:
+        f = inj.lose_shard(dep, block=1)
+        dep.read_block(1)
+        dep.run_recovery()
+    elif i == 4:
+        f = inj.corrupt_replica(dep, block=2)
+    elif i == 5:
+        f = inj.corrupt_base_csr(sess.store, mode="endpoint")
+    elif i == 6:
+        f = inj.fail_next_extract(dep)
+    elif i == 7:
+        f = inj.fail_next_escalation(sess)
+    elif i == 8:
+        # the hook patches the process-global ckpt.save: fire it here, so
+        # the two stacks of this process do not share one armed hook
+        f = inj.fail_mid_checkpoint(ds)
+        if ds.checkpoint() is not None:
+            _fail("7a: the injected mid-checkpoint crash did not fire")
+    elif i == 9:
+        f = inj.corrupt_wal(ds)
+    elif i == 10:
+        # a pending overlay chunk (staged as the reference's test does),
+        # then one flipped weight bit in it
+        u = np.random.default_rng(9).integers(0, sess.n, 16)
+        sess.store._ou.append(u.astype(np.int64))
+        sess.store._ov.append(((u + 1) % sess.n).astype(np.int64))
+        sess.store._ow.append(np.ones(16, np.float32))
+        sess.store._olen += 16
+        f = inj.bitflip_overlay(sess.store)
+    return None if f is None else f.kind
+
+
+def check_dr_small(torch, workdir: str, devs=("cuda", "cpu")) -> None:
+    """Phase 7a: the full DR stack (2 replicas, halo 1, audit cadence 2,
+    checkpoint every 4) on ba-1024 at k=4 on the card and on the CPU over
+    the same mangled stream (phase 6a's edge churn and node adds, dropped,
+    duplicated and swapped by the injector) with each fault class injected
+    once.  Digests, transaction outcomes and every shard equal after every
+    submit, after heal() and after a restore from disk."""
+    import os
+
+    import numpy as np
+    from repro_torch.dynamic import PartitionSession, SessionConfig
+    from repro_torch.graph import barabasi_albert
+    from repro_torch.resilience import DurableSession, FaultInjector, host_digest
+
+    g = barabasi_albert(1024, 4, seed=5)
+    ups = [a for kind, a in _small_stream(g, seed=1) if kind == "update"]
+    churn = churn_batches(g, np.random.default_rng(2), 24, lambda: g.n)
+    ups += [next(churn)[0] for _ in range(9)]
+    stacks, injs, streams = {}, {}, {}
+    for d in devs:
+        sess = PartitionSession(g, SessionConfig(k=4, seed=0), device=d)
+        stacks[d] = _dr_stack(sess, os.path.join(workdir, f"7a_{d}"), audit_cadence=2,
+                              checkpoint_every=4)
+        injs[d] = FaultInjector(seed=3)
+        streams[d] = injs[d].mangle_stream(ups, drop=0.1, dup=0.15, swap=0.2)
+    a, b = devs
+    if [s for s, _ in streams[a]] != [s for s, _ in streams[b]]:
+        _fail("7a: the two injectors mangled the stream differently")
+
+    def same(tag):
+        da, db = (host_digest(stacks[d].session) for d in devs)
+        key = _digest_diff(da, db)
+        if key is not None:
+            _fail(f"7a {tag}: card and CPU digests differ in {key}")
+        diff = _shards_diff(stacks[a].rs.deployment.shards, stacks[b].rs.deployment.shards)
+        if diff is not None:
+            _fail(f"7a {tag}: card and CPU shards differ at {diff}")
+
+    def heal(tag):
+        reps = {d: stacks[d].heal() for d in devs}
+        if not reps[a].ok or reps[a].failures != reps[b].failures:
+            _fail(f"7a heal {tag}: card {reps[a].failures} vs CPU {reps[b].failures}")
+        same(f"heal {tag}")
+
+    same("start")
+    kinds = []
+    for i, (seq, upd) in enumerate(streams[a]):
+        txs = {}
+        for d in devs:
+            kind = _inject_7a(i, injs[d], stacks[d])
+            txs[d] = stacks[d].submit(upd, seq=seq)
+        kinds.append(kind)
+        if _tx_key(txs[a]) != _tx_key(txs[b]):
+            _fail(f"7a submit {i}: card {_tx_key(txs[a])} vs CPU {_tx_key(txs[b])}")
+        same(f"submit {i}")
+        if kind in ("corrupt_labels", "corrupt_base_csr", "bitflip_overlay"):
+            heal(f"after {kind}")   # corruption outside a transaction
+    heal("final")
+    st = {d: stacks[d].stats() for d in devs}
+    keys = ("tx_committed", "tx_rollbacks", "tx_retries", "tx_quarantined",
+            "tx_duplicates_dropped", "tx_lost", "failovers", "failover_misses",
+            "dr_checkpoints_written", "dr_failed_checkpoints", "failed_migrations")
+    if any(st[a][k_] != st[b][k_] for k_ in keys):
+        _fail(f"7a stats differ: {[(k_, st[a][k_], st[b][k_]) for k_ in keys]}")
+    for d in devs:
+        injs[d].disarm()
+        stacks[d], _ = DurableSession.restore(os.path.join(workdir, f"7a_{d}"), device=d)
+    same("restore")
+    if not stacks[a].session.labels.is_cuda and a == "cuda":
+        _fail("7a: the restored card stack is not on the card")
+    print(f"7a DR stack ba-1024 k=4 ({len(streams[a])} mangled submits, faults "
+          f"{[k_ for k_ in kinds if k_]}): card == cpu after every submit, heal and "
+          f"restore; " + json.dumps({k_: st[a][k_] for k_ in keys}), flush=True)
+
+
+def _dir_bytes(path: str) -> int:
+    import os
+
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def time_dr_programs(torch, sess, dep) -> dict:
+    """Times (ms) of the deploy and audit device programs at the serving
+    stack's own shapes: block 0's hop layering and extraction, the CSR
+    audit of the store's base, the label audit, and block 0's owned-arc
+    checksum and ghost-owner audit.  CUDA events on the card."""
+    from repro_torch.deploy.extract import _shard_extract, _shard_masks
+    from repro_torch.resilience.audit import (
+        _csr_audit, _ghost_owner_audit, _labels_audit, _shard_owned_chk,
+    )
+
+    gd = sess.store.graph()
+    ex = dep.extractor
+    lab = ex._labels_nb(gd, sess.labels, sess.k)
+    s = dep.shards[0]
+    hop, _ = _shard_masks(lab, gd.src, gd.indices, gd.indptr, 0, gd.n, dep.halo)
+    fns = dict(
+        shard_masks=lambda: _shard_masks(lab, gd.src, gd.indices, gd.indptr, 0, gd.n,
+                                         dep.halo),
+        shard_extract=lambda: _shard_extract(
+            hop, lab, gd.indptr, gd.indices, gd.ew, gd.nw, gd.n, dep.halo, s.n_own,
+            s.n_ghost, s.n_rows, Ob=s.own_g.shape[0], Gb=s.ghost_g.shape[0],
+            Eb=s.indices.shape[0]),
+        csr_audit=lambda: _csr_audit(gd.indptr, gd.src, gd.indices, gd.ew, gd.nw, gd.n, gd.m),
+        labels_audit=lambda: _labels_audit(sess.labels, sess.n, sess.k),
+        shard_owned_chk=lambda: _shard_owned_chk(s.own_g, s.ghost_g, s.indptr, s.indices,
+                                                 s.ew, s.n_own, s.m_local),
+        ghost_owner_audit=lambda: _ghost_owner_audit(s.ghost_g, s.ghost_block_dev,
+                                                     sess.labels, s.n_ghost),
+    )
+    out = {name: _time_ms(fn, torch, warmup=1, batches=3, reps=3) for name, fn in fns.items()}
+    shapes = dict(Nb=gd.indptr.shape[0] - 1, Mb=gd.indices.shape[0], Ob=s.own_g.shape[0],
+                  Gb=s.ghost_g.shape[0], Eb=s.indices.shape[0], A=sess.labels.shape[0])
+    print(f"7b DR device programs (block 0, {json.dumps(shapes)}), ms: "
+          f"{json.dumps({k_: round(v, 4) for k_, v in out.items()})}", flush=True)
+    return out
+
+
+def check_dr_full(torch, sess, g, workdir: str, partition_s: float, warm: int = 2,
+                  timed: int = 8) -> dict:
+    """Phase 7b: phase 6b's session (rmat(19, 16) without isolated nodes,
+    k=16, dense refinement) inside the full DR stack (2 replicas, halo 1,
+    audit cadence 8, checkpoint every 4) under 6b's 0.1 % churn.  Checks
+    shard parity with the numpy oracle, reassembly, the ghost exchange and
+    the comm metrics; times the commits, one audit pass and one
+    checkpoint; then corrupt_shard/lose_shard with failover, corrupt_labels
+    with heal(), one forced escalation (lp_score_rows launches), and a
+    restore from disk whose digest must equal the live one."""
+    import gc
+    import os
+
+    import numpy as np
+    from repro_torch.deploy import (
+        block_comm_metrics_np, extract_blocks_numpy, ghost_exchange_numpy, reassemble,
+        shard_comm_metrics,
+    )
+    from repro_torch.kernels.lp_score import lp_score_rows
+    from repro_torch.resilience import DurableSession, FaultInjector, host_digest
+
+    k = sess.k
+    directory = os.path.join(workdir, "7b")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    ds = _dr_stack(sess, directory, audit_cadence=8, checkpoint_every=4)
+    torch.cuda.synchronize()
+    dep, rs = ds.rs.deployment, ds.rs
+    print(f"7b DR stack on n={sess.n}, m={sess.store.m}, k={k}: built in "
+          f"{time.perf_counter() - t:.3f} s (16 shards x 2 replicas + first checkpoint)",
+          flush=True)
+
+    # ---- shard parity, reassembly, ghost exchange, comm metrics
+    t = time.perf_counter()
+    gh, lab = sess.store.csr_host(), sess.labels_np()
+    oracle = extract_blocks_numpy(gh, lab, k, halo=1)
+    diff = _shards_diff(dep.shards, oracle)
+    if diff is not None:
+        _fail(f"7b shard {diff} differs from extract_blocks_numpy")
+    g2 = reassemble(dep.shards, sess.n)
+    for f in ("indptr", "indices", "ew", "nw"):
+        if not np.array_equal(getattr(g2, f), getattr(gh, f)):
+            _fail(f"7b reassemble differs from the store's CSR in {f}")
+    payload = np.random.default_rng(3).integers(0, 10**6, sess.n)
+    for vals in (lab, payload):
+        for s, r in zip(dep.shards, ghost_exchange_numpy(dep.shards, vals)):
+            if not np.array_equal(r, vals[s.ghost_global_np()]):
+                _fail(f"7b ghost exchange of block {s.block} does not round-trip")
+    m_sh, m_lab = shard_comm_metrics(dep.shards), block_comm_metrics_np(gh, lab, k)
+    if m_sh["total_volume"] != m_lab["total_volume"]:
+        _fail(f"7b comm volume {m_sh['total_volume']} vs {m_lab['total_volume']}")
+    sizes = [(s.n_own, s.n_ghost, s.m_local) for s in dep.shards]
+    print(f"7b {k} shards == extract_blocks_numpy bit for bit, reassemble == store CSR, "
+          f"ghost exchange round-trips, comm volume {m_sh['total_volume']} == label view "
+          f"({time.perf_counter() - t:.1f} s of host checks); (n_own, n_ghost, m_local) "
+          f"min {min(sizes)} max {max(sizes)}", flush=True)
+
+    # ---- the commit path under 6b's churn
+    nb = g.m // 2 // 1000
+    batches = churn_batches(g, np.random.default_rng(31), nb, lambda: sess.n)
+    secs, split = [], {}
+    for i in range(warm + timed):
+        upd = next(batches)[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i >= warm:
+            tx, spans = _traced(torch, lambda: ds.submit(upd, seq=rs._expected_seq))
+            for k_, v in spans.items():
+                split[k_] = split.get(k_, 0.0) + v
+        else:
+            tx = ds.submit(upd, seq=rs._expected_seq)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        if not tx.committed or not tx.result.feasible:
+            _fail(f"7b submit {i}: committed {tx.committed}, reason {tx.reason}")
+        if i >= warm:
+            secs.append(dt)
+    top = ("resilience.snapshot", "session.update", "resilience.audit", "deploy.migrate",
+           "deploy.replicas", "wal.fsync", "checkpoint.write")
+    print(f"7b per-commit seconds over {len(secs)} timed submits ({nb} adds + {nb} "
+          f"removals each, tracer on): {_pcts(secs)}", flush=True)
+    print(f"7b commit split over the timed submits, ms: "
+          f"{json.dumps({k_: round(split.get(k_, 0.0), 3) for k_ in top})}; all spans "
+          f"{json.dumps({k_: round(v, 3) for k_, v in sorted(split.items())})}", flush=True)
+    st = ds.stats()
+    print(f"7b stats " + json.dumps({k_: st[k_] for k_ in (
+        "tx_committed", "audits", "failed_audits", "full_rebuilds", "blocks_patched_total",
+        "dr_checkpoints_written", "replica_refreshes", "escalations")}), flush=True)
+
+    # ---- one audit pass, one checkpoint
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rep = rs.auditor.audit()
+    audit_ms = (time.perf_counter() - t) * 1e3
+    if not rep.ok:
+        _fail(f"7b audit failed: {rep.failures}")
+    t = time.perf_counter()
+    step = ds.checkpoint()
+    ckpt_s = time.perf_counter() - t
+    if step is None:
+        _fail(f"7b checkpoint failed: {ds.last_checkpoint_error!r}")
+    ckpt_bytes = _dir_bytes(os.path.join(directory, f"step_{step:08d}"))
+    print(f"7b one audit pass ({len(rep.checked)} checks): {audit_ms:.3f} ms; one "
+          f"checkpoint: {ckpt_s:.3f} s, {ckpt_bytes} bytes", flush=True)
+    programs = time_dr_programs(torch, sess, dep)
+
+    # ---- faults: failover, recovery, heal
+    inj = FaultInjector(seed=5)
+    inj.corrupt_shard(dep, block=3)
+    t = time.perf_counter()
+    s = dep.read_block(3)
+    fo_s = time.perf_counter() - t
+    if dep.failovers != 1 or not dep.verify_shard(3, s) or dep.recovery_pending != {3}:
+        _fail(f"7b corrupt_shard: failovers {dep.failovers}, pending {dep.recovery_pending}")
+    dep.run_recovery()
+    inj.lose_shard(dep, block=5)
+    dep.read_block(5)
+    t = time.perf_counter()
+    dep.run_recovery()
+    rec_s = time.perf_counter() - t
+    if dep.shards[5] is None or not dep.verify_shard(5, dep.shards[5]) or dep.failovers != 2:
+        _fail("7b lose_shard: block 5 not recovered")
+    before = host_digest(sess)
+    rs.snapshots.take()
+    inj.corrupt_labels(sess, count=8)
+    t = time.perf_counter()
+    hrep = ds.heal()
+    heal_s = time.perf_counter() - t
+    key = _digest_diff(host_digest(sess), before)
+    if not hrep.ok or key is not None:
+        _fail(f"7b heal after corrupt_labels: ok {hrep.ok}, digest differs in {key}")
+    print(f"7b corrupt_shard -> read_block served the audited standby in {fo_s:.4f} s; "
+          f"lose_shard -> failover, run_recovery {rec_s:.3f} s; corrupt_labels -> heal() "
+          f"{heal_s:.3f} s, digest == pre-fault", flush=True)
+
+    # ---- one forced escalation through the transactional path
+    upd = next(batches)[0]
+    sess.cfg.escalate_cut_ratio = 0.0
+    torch.cuda.synchronize()
+    before = lp_score_rows.launches
+    t = time.perf_counter()
+    tx = ds.submit(upd, seq=rs._expected_seq)
+    torch.cuda.synchronize()
+    esc_s = time.perf_counter() - t
+    esc_launches = lp_score_rows.launches - before
+    sess.cfg.escalate_cut_ratio = 1.6
+    if not tx.committed or not tx.result.escalated:
+        _fail(f"7b forced escalation: committed {tx.committed}, escalated "
+              f"{tx.result.escalated if tx.result else None}")
+    if esc_launches <= 0:
+        _fail("7b: the escalation never launched lp_score_rows")
+    print(f"7b forced escalation through ResilientSession: {esc_s:.3f} s, "
+          f"lp_score_rows launches {esc_launches}, cut {tx.result.cut}", flush=True)
+
+    # ---- restore from disk: checkpoint after the escalation (its replay
+    # would need the forced ratio), two WAL records past it
+    if ds.checkpoint() is None:
+        _fail(f"7b checkpoint after the escalation failed: {ds.last_checkpoint_error!r}")
+    for _ in range(2):
+        tx = ds.submit(next(batches)[0], seq=rs._expected_seq)
+        if not tx.committed:
+            _fail(f"7b submit before restore: {tx.reason}")
+    live = host_digest(sess)
+    cfg = sess.cfg
+    peak = torch.cuda.max_memory_allocated()
+    ds.close()
+    del ds, dep, rs, sess, tx, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ds2, rrep = DurableSession.restore(directory, session_cfg=cfg, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    key = _digest_diff(host_digest(ds2.session), live)
+    if key is not None:
+        _fail(f"7b restore: digest differs from the live one in {key}")
+    print(f"7b restore: {restore_s:.3f} s (checkpoint step {rrep.checkpoint_step}, "
+          f"{rrep.records_replayed} WAL records replayed, shards re-extracted) against "
+          f"phase 4's partition() {partition_s:.3f} s; digest == live; peak device memory "
+          f"{peak / 2**30:.3f} GiB", flush=True)
+    del ds2
+    gc.collect()
+    return dict(secs=secs, split=split, audit_ms=audit_ms, ckpt_s=ckpt_s,
+                ckpt_bytes=ckpt_bytes, programs=programs, esc_launches=esc_launches,
+                restore_s=restore_s, peak=peak)
+
+
+def check_deploy_hot(torch, warm: int = 2, timed: int = 3) -> None:
+    """Phase 7c: the reference benchmark's ``deploy_hot`` — pp-16384 at k=8,
+    halo 1: all k shards extracted on the device against
+    ``extract_blocks_numpy`` (parity asserted), then per-batch incremental
+    migration under ~1 % churn inside one block's interior against a full
+    re-extraction (min of ``timed``)."""
+    import numpy as np
+    from repro_torch.deploy import ShardDeployment, extract_blocks_numpy
+    from repro_torch.dynamic import GraphUpdate, PartitionSession, SessionConfig
+    from repro_torch.graph import planted_partition
+
+    g = planted_partition(16384, 16, p_in=0.01, p_out=0.00002, seed=4)
+    k = 8
+    sess = PartitionSession(g, SessionConfig(k=k, seed=0), device="cuda")
+    dep = ShardDeployment(sess, halo=1)
+    ex = dep.extractor
+    gh, lab = sess.store.csr_host(), sess.labels_np()
+    diff = _shards_diff(dep.shards, extract_blocks_numpy(gh, lab, k, halo=1))
+    if diff is not None:
+        _fail(f"7c shard {diff} differs from extract_blocks_numpy")
+    t_dev, t_np = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ex.extract(sess.store.graph(), sess.labels, k, halo=1)
+        torch.cuda.synchronize()
+        t_dev.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        extract_blocks_numpy(gh, lab, k, halo=1)
+        t_np.append(time.perf_counter() - t)
+    rng = np.random.default_rng(11)
+    nb = max(g.m // 2 // 200, 64)
+
+    def one_batch():
+        lab_ = sess.labels_np()
+        gh_ = sess.store.csr_host()
+        src = gh_.arc_sources()
+        bnd = np.zeros(gh_.n, bool)
+        bnd[src[lab_[src] != lab_[gh_.indices]]] = True
+        b = int(np.argmax(np.bincount(lab_[~bnd], minlength=k)))
+        ids = np.flatnonzero((lab_ == b) & ~bnd)
+        m = min(nb, ids.size // 2)
+        au, av = rng.choice(ids, m), rng.choice(ids, m)
+        keep = au != av
+        inb = (lab_[src] == b) & (lab_[gh_.indices] == b) & ~bnd[src] \
+            & ~bnd[gh_.indices] & (src < gh_.indices)
+        cand = rng.permutation(np.flatnonzero(inb))[:m]
+        return dep.update(GraphUpdate.add_edges(au[keep], av[keep]).merged(
+            GraphUpdate.remove_edges(src[cand], gh_.indices[cand])))
+
+    for _ in range(warm):
+        one_batch()
+    t_mig, t_full, patched = [], [], []
+    for _ in range(timed):
+        _, delta = one_batch()
+        t_mig.append(delta.seconds)
+        patched.append(int(delta.blocks_patched.size))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ex.extract(sess.store.graph(), sess.labels, k, halo=1)
+        torch.cuda.synchronize()
+        t_full.append(time.perf_counter() - t)
+    diff = _shards_diff(dep.shards, extract_blocks_numpy(
+        sess.store.csr_host(), sess.labels_np(), k, halo=1))
+    if diff is not None:
+        _fail(f"7c shard {diff} differs from the oracle after migration")
+    st = dep.stats()
+    print(f"7c deploy_hot pp-16384 k=8 halo 1 (m={g.m}): extract all {k} shards on the "
+          f"device {min(t_dev) * 1e3:.3f} ms vs extract_blocks_numpy {min(t_np) * 1e3:.3f} ms "
+          f"(parity asserted); migration under {2 * nb} churned edges in one block "
+          f"{min(t_mig) * 1e3:.3f} ms vs full re-extraction {min(t_full) * 1e3:.3f} ms "
+          f"(blocks patched {patched}, full_rebuilds {st['full_rebuilds']}, "
+          f"deploy_bucket_count {st['deploy_bucket_count']})", flush=True)
+
+
+def check_resilience_dr(torch, workdir: str, cadence: int = 8) -> None:
+    """Phase 7d: the reference benchmark's ``resilience_dr`` — ba-16384 at
+    k=4, audit cadence 8: transactional submits without (bare
+    ``ResilientSession``) and with the DR stack (2 replicas, fsynced WAL),
+    one checkpoint, a restore (checkpoint_every = 4 WAL records replayed)
+    against a fresh ``partition()``, and a standby failover against
+    ``recover_block``."""
+    import os
+
+    import numpy as np
+    from repro_torch.core import PartitionerConfig, partition
+    from repro_torch.dynamic import GraphUpdate, PartitionSession, SessionConfig
+    from repro_torch.graph import barabasi_albert
+    from repro_torch.resilience import (
+        DurableSession, FaultInjector, ResilientConfig, ResilientSession, host_digest,
+    )
+
+    g = barabasi_albert(16384, 6, seed=3)
+    k, ckpt_every = 4, 4
+    directory = os.path.join(workdir, "7d")
+    bare = ResilientSession(PartitionSession(g, SessionConfig(k=k, seed=0), device="cuda"),
+                            cfg=ResilientConfig(audit_cadence=cadence))
+    ds = _dr_stack(PartitionSession(g, SessionConfig(k=k, seed=0), device="cuda"), directory,
+                   audit_cadence=cadence, checkpoint_every=1 << 30)
+    nb = max(g.m // 2 // 200, 64)
+    rng = np.random.default_rng(11)
+
+    def batch():
+        au = rng.integers(0, g.n, nb)
+        return GraphUpdate.add_edges(au, (au + 1 + rng.integers(0, g.n - 1, nb)) % g.n)
+
+    per = {}
+    for name, submit in (("bare", bare.submit), ("durable", ds.submit)):
+        for _ in range(cadence):           # warm
+            submit(batch())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(cadence):
+            submit(batch())
+        torch.cuda.synchronize()
+        per[name] = (time.perf_counter() - t) / cadence
+    t_ck = []
+    for _ in range(2):
+        t = time.perf_counter()
+        if ds.checkpoint() is None:
+            _fail(f"7d checkpoint failed: {ds.last_checkpoint_error!r}")
+        t_ck.append(time.perf_counter() - t)
+    for _ in range(ckpt_every):
+        ds.submit(batch())
+    live = host_digest(ds.session)
+    t = time.perf_counter()
+    ds2, rep = DurableSession.restore(directory, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    key = _digest_diff(host_digest(ds2.session), live)
+    if key is not None or rep.records_replayed != ckpt_every:
+        _fail(f"7d restore: digest differs in {key}, replayed {rep.records_replayed}")
+    del ds2
+    t = time.perf_counter()
+    partition(ds.session.store.csr_host(), PartitionerConfig(k=k, preset="fast", seed=0),
+              device="cuda")
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t
+    dep = ds.rs.deployment
+    inj = FaultInjector(seed=1)
+    t_fo, t_rec = [], []
+    for _ in range(2):
+        inj.corrupt_shard(dep, block=0)
+        t = time.perf_counter()
+        if dep.read_block(0) is None:
+            _fail("7d failover served no shard")
+        t_fo.append(time.perf_counter() - t)
+        dep.run_recovery()
+        t = time.perf_counter()
+        dep.recover_block(0)
+        t_rec.append(time.perf_counter() - t)
+    print(f"7d resilience_dr ba-16384 k=4 ({nb} adds per update, audit cadence {cadence}): "
+          f"submit per update without the DR stack {per['bare'] * 1e3:.3f} ms, with it "
+          f"(2 replicas + fsynced WAL) {per['durable'] * 1e3:.3f} ms; one checkpoint "
+          f"{min(t_ck):.3f} s; restore ({rep.records_replayed} records replayed) "
+          f"{restore_s:.3f} s vs fresh partition() {part_s:.3f} s; failover read "
+          f"{min(t_fo) * 1e3:.3f} ms vs recover_block {min(t_rec) * 1e3:.3f} ms "
+          f"(failovers {dep.failovers})", flush=True)
+    ds.close()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -841,7 +1440,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.graph import plan_ell_rows, pow2
     from repro_torch.kernels import build
-    from repro_torch.kernels.lp_score import lp_score
+    from repro_torch.kernels.lp_score import lp_score, lp_score_rows
 
     t_start = time.perf_counter()
     card = _card_line()
@@ -887,13 +1486,35 @@ def main(argv=None) -> int:
     # ---- phase 5: the kernels' numbers on the main path's own input
     m = path_lp_score_rows(torch, g, rep.labels, k=16)
 
-    # ---- phase 6: the dynamic serving subsystem (this slice's path)
+    # ---- phase 6: the dynamic serving subsystem
     t = time.perf_counter()
     check_dynamic_small(torch)
-    check_dynamic_full(torch, g)
+    dyn = check_dynamic_full(torch, g)
     check_dynamic_throughput(torch)
     check_dynamic_group(torch)
     print(f"phase 6: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- phase 7: the deployment and fault-tolerance stack (this slice's
+    # path), on 6b's session; its DR directories live in a temporary
+    # directory removed at the end
+    t = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_dr_")
+    try:
+        check_dr_small(torch, workdir)
+        torch.cuda.synchronize()
+        lp_score_rows.launches = 0
+        dr = check_dr_full(torch, dyn.pop("sess"), g, workdir, runs["auto"]["wall"])
+        torch.cuda.synchronize()
+        dr_launches = lp_score_rows.launches
+        print(f"7b lp_score_rows launches over the DR path: {dr_launches} (escalation "
+              f"{dr['esc_launches']})", flush=True)
+        if dr_launches <= 0:
+            _fail("7b: the DR path never launched lp_score_rows")
+        check_deploy_hot(torch)
+        check_resilience_dr(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"phase 7: {time.perf_counter() - t:.1f} s", flush=True)
     kernels = [dict(
         name="lp_score_rows",
         route="cuda",

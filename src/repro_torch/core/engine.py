@@ -119,6 +119,7 @@ class EngineStats(RegistryBackedStats):
         "evo_calls",            # batched GA steps (seed + generations)
         "gather_builds",        # device pack gathers (GraphDev levels)
         "repair_calls",         # incremental repairs (dynamic subsystem)
+        "audit_calls",          # invariant-audit dispatches (resilience)
         "h2d_bytes",            # host->device uploads the engine issued
         "d2h_bytes",            # device->host downloads (scalars + lazy
                                 # materializations of GraphDev/CoarseMap)
@@ -127,6 +128,7 @@ class EngineStats(RegistryBackedStats):
         "buckets",              # distinct (C, N, E, A, W) sweep shapes
         "contract_buckets",     # distinct (Nb, Mb, wbits)
         "repair_buckets",       # distinct repair shapes (the reference's keys)
+        "audit_buckets",        # distinct audit shapes (the reference's keys)
     )
 
     @property
@@ -140,6 +142,14 @@ class EngineStats(RegistryBackedStats):
     @property
     def repair_bucket_count(self) -> int:
         return len(self.repair_buckets)
+
+    @property
+    def audit_bucket_count(self) -> int:
+        return len(self.audit_buckets)
+
+    def note_audit_key(self, key) -> None:
+        """Record one audit dispatch shape (the resilience auditor's)."""
+        self.audit_buckets.add(key)
 
 
 def _upload(a: np.ndarray, dev: torch.device, dtype=None) -> torch.Tensor:
@@ -956,6 +966,8 @@ class LPEngine:
             gather_builds=self.stats.gather_builds,
             repair_calls=self.stats.repair_calls,
             repair_bucket_count=self.stats.repair_bucket_count,
+            audit_calls=self.stats.audit_calls,
+            audit_bucket_count=self.stats.audit_bucket_count,
             h2d_bytes=self.stats.h2d_bytes,
             d2h_bytes=self.stats.d2h_bytes,
             arena=self.A,

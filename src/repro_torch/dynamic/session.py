@@ -22,6 +22,8 @@ config, update stream): repair seeds derive from the step counter.
 No code here writes into a tensor the session or its store holds, or that
 a snapshot may hold: labels are only ever rebound to new tensors.  The
 reference's memory accounting and compile counters are not ported.
+:meth:`PartitionSession.from_restored` rebuilds a session from a
+checkpoint without the initial V-cycle.
 """
 
 from __future__ import annotations
@@ -173,24 +175,75 @@ class PartitionSession:
     view_hits = _reg_counter("view_hits")
 
     def __init__(self, g: GraphNP, cfg: SessionConfig, *, device=None):
-        self.device = resolve_device(device)
+        t0 = time.time()
+        device = resolve_device(device)
+        rep = partition(g, cfg.make_partition_cfg(cfg.seed), device=device)
+        self._build(g, cfg, device, rep.labels, step=0, cut_ref=float(rep.cut),
+                    ew_ref=max(float(g.ew.sum()) / 2.0, 1e-9))
+        cut, imb, feas = self._score(self.store.base)
+        self.trajectory: List[UpdateResult] = [UpdateResult(
+            step=0, n=g.n, m=g.m, cut=cut, imbalance=imb, feasible=feas,
+            escalated=True, seconds=time.time() - t0,
+        )]
+
+    @classmethod
+    def from_restored(
+        cls,
+        g: GraphNP,
+        cfg: SessionConfig,
+        *,
+        labels: np.ndarray,
+        step: int,
+        cut_ref: float,
+        ew_ref: float,
+        trajectory: Optional[List[UpdateResult]] = None,
+        suppress_escalation: bool = False,
+        device=None,
+    ) -> "PartitionSession":
+        """Rebuild a session from durably-captured state WITHOUT running the
+        initial ``partition()`` V-cycle — the disaster-recovery constructor
+        (:mod:`repro_torch.resilience.durable`).  ``g`` is the checkpointed
+        base graph; ``labels``/``step``/``cut_ref``/``ew_ref`` restore the
+        exact serving state, so replaying the same post-checkpoint update
+        stream reproduces the pre-crash labels bit for bit (every repair
+        seed derives from the restored step counter).  Engine and store are
+        built by the same :meth:`_build` as :meth:`__init__`, on ``device``
+        (CUDA unless the caller names another)."""
+        self = cls.__new__(cls)
+        self._build(g, cfg, resolve_device(device), labels, step=step,
+                    cut_ref=cut_ref, ew_ref=ew_ref)
+        self.suppress_escalation = bool(suppress_escalation)
+        if trajectory:
+            self.trajectory = list(trajectory)
+        else:
+            cut, imb, feas = self._score(self.store.base)
+            self.trajectory = [UpdateResult(
+                step=self._step, n=g.n, m=g.m, cut=cut, imbalance=imb,
+                feasible=feas,
+            )]
+        return self
+
+    def _build(self, g: GraphNP, cfg: SessionConfig, device: torch.device,
+               labels, *, step: int, cut_ref: float, ew_ref: float) -> None:
+        """Engine, store, labels and counters of a session on ``device``
+        serving ``labels`` of ``g`` at ``step``: the one build of both
+        constructors."""
+        self.device = device
         self.cfg = cfg
         self.k = cfg.k
         # one registry per serving stack: engine + store + session counters
         self.metrics = MetricsRegistry("session")
-        t0 = time.time()
-        rep = partition(g, cfg.make_partition_cfg(cfg.seed), device=self.device)
         self.engine = LPEngine(
             g, target_chunks=cfg.target_chunks, seed=cfg.seed,
-            registry=self.metrics, device=self.device,
+            registry=self.metrics, device=device,
         )
         self.store = DynamicGraphStore(
             g, overlay_cap=cfg.overlay_cap,
             on_h2d=self._note_h2d, on_d2h=self._note_d2h,
-            registry=self.metrics, device=self.device,
+            registry=self.metrics, device=device,
         )
         self._base_id = id(self.store.base)
-        self.labels = self.engine.to_arena(rep.labels, g.n, fill=self.k)
+        self.labels = self.engine.to_arena(np.asarray(labels, np.int32), g.n, fill=self.k)
         self.escalations = 0
         self.engine_rebuilds = 0
         self.escalate_h2d_saved = 0
@@ -202,14 +255,9 @@ class PartitionSession:
         self.suppress_escalation = False
         # flight recorder: (t_mono, seconds) of the most recent updates
         self.flight = deque(maxlen=max(1, cfg.flight_recorder_len))
-        self._step = 0
-        self._cut_ref = float(rep.cut)
-        self._ew_ref = max(float(g.ew.sum()) / 2.0, 1e-9)
-        cut, imb, feas = self._score(self.store.base)
-        self.trajectory: List[UpdateResult] = [UpdateResult(
-            step=0, n=g.n, m=g.m, cut=cut, imbalance=imb, feasible=feas,
-            escalated=True, seconds=time.time() - t0,
-        )]
+        self._step = int(step)
+        self._cut_ref = float(cut_ref)
+        self._ew_ref = float(ew_ref)
 
     # --------------------------------------------------------------- internal
 

@@ -1,12 +1,15 @@
 """repro_torch cases that need an NVIDIA GPU: each hand-written CUDA kernel
 against its plain PyTorch version on the card, and the dense round's, the
-batched GA's and the dynamic serving subsystem's card paths against their
-CPU paths.  Marked ``cuda``; they skip without a device.
+batched GA's, the dynamic serving subsystem's and the DR stack's card paths
+against their CPU paths.  Marked ``cuda``; they skip without a device.
 This file imports neither jax nor the reference package, so it runs on a
 GPU machine that has only PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -201,3 +204,19 @@ def test_group_card_matches_cpu():
             _assert_same(res["cuda"][name], res["cpu"][name],
                          groups["cuda"].sessions[name], groups["cpu"].sessions[name])
     assert groups["cuda"].stats.lanes_repaired == 9
+
+
+@pytest.mark.cuda
+def test_dr_stack_card_matches_cpu(tmp_path):
+    """The replicated, transactional, durable stack over a mangled stream
+    with each fault class injected once gives the same host digest, the
+    same TxResults and the same shards (every field) on the card as on the
+    CPU after every submit, after heal() and after a restore: the smoke
+    run's phase 7a, called here so that the check lives in one place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.check_dr_small(torch, str(tmp_path))
