@@ -44,8 +44,17 @@ Phases, each of which fails the run:
    checkpoint, the device programs' times, failover, heal, one forced
    escalation (``lp_score_rows`` launches) and a restore whose digest
    equals the live one; (c) the reference benchmark's ``deploy_hot`` and
-   (d) its ``resilience_dr``.  Then one JSON line with each kernel's
-   numbers and, last, the device line.
+   (d) its ``resilience_dr``;
+8. the distributed path (``engine="dist"``) and the island-sharded GA:
+   (a) the distributed sweeps, contraction and ``partition(engine="dist",
+   dist_shards=8)`` on ba-8192 with all PEs on the card equal the CPU, and
+   the GA sharded over ``[cuda:0] * 2`` equals the unsharded GA; (b) that
+   ``partition()`` on the phase-4 graph at k=16, 8 PEs on the card:
+   feasible, below the hash cut, with its shards' sizes, the times of its
+   host planning, sweeps, per-PE programs, exchange and contraction (equal
+   to the host's), the sharded GA's generation step at full width (equal
+   to the unsharded one) and the peak device memory.
+Then one JSON line with each kernel's numbers and, last, the device line.
 
 Run from the repository root:  python3 chip_smoke.py
 (``--scale``/``--edge-factor`` shrink the end-to-end graph for quick runs).
@@ -109,25 +118,38 @@ def _time_ms(fn, torch, warmup: int = 3, batches: int = 5, reps: int = 10) -> fl
 
 def measure_lp_score_rows(torch, lbl, w, k: int) -> dict:
     """lp_score_rows against its plain version on one input: the max abs
-    error, both times (CUDA events) and the bound for this input."""
+    error, both times (CUDA events), the time of the one PyTorch call that
+    computes the same function (``scatter_add_`` into a spare column k, the
+    index clamped outside the timed region) and the bound for this input."""
     from repro_torch.kernels.lp_score import lp_score_rows, lp_score_rows_ref
 
-    err = float((lp_score_rows(lbl, w, k) - lp_score_rows_ref(lbl, w, k)).abs().max())
+    out = lp_score_rows(lbl, w, k)
+    err = float((out - lp_score_rows_ref(lbl, w, k)).abs().max())
     ms = _time_ms(lambda: lp_score_rows(lbl, w, k), torch)
     plain_ms = _time_ms(lambda: lp_score_rows_ref(lbl, w, k), torch)
+    idx = torch.where((lbl >= 0) & (lbl < k), lbl, k).to(torch.int64)
+    acc = torch.zeros((lbl.shape[0], k + 1), dtype=torch.float32, device=lbl.device)
+    acc.scatter_add_(1, idx, w)
+    if not torch.allclose(acc[:, :k], out, rtol=1e-5, atol=1e-6):
+        _fail(f"the library call disagrees with lp_score_rows: "
+              f"{float((acc[:, :k] - out).abs().max())}")
+    library_ms = _time_ms(lambda: acc.scatter_add_(1, idx, w), torch)
+    del idx, acc
     R, W = lbl.shape
     n_bytes = R * W * (4 + 4) + R * k * 4        # each input read, output written once
     n_ops = int(((lbl >= 0) & (lbl < k)).sum())  # one add per in-range slot
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / PEAK_F32_OPS_PER_S * 1e3
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 gbytes=n_bytes / 1e9)
 
 
 def _report(tag: str, R: int, W: int, k: int, m: dict) -> None:
     print(f"lp_score_rows {tag} ({R}x{W}, k={k}): kernel {m['ms']:.4f} ms, "
-          f"plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+          f"plain {m['plain_ms']:.4f} ms, library scatter_add_ {m['library_ms']:.4f} ms, "
+          f"bound {m['bound_ms']:.4f} ms "
           f"({m['gbytes']:.3f} GB, {m['bound_by']}), "
           f"{m['gbytes'] / m['ms']:.3f} TB/s achieved, max_abs_err {m['max_abs_err']}",
           flush=True)
@@ -1422,6 +1444,313 @@ def check_resilience_dr(torch, workdir: str, cadence: int = 8) -> None:
     ds.close()
 
 
+# --------------------------------------------------------------------------
+# phase 8: the distributed path (engine="dist") and the island-sharded GA
+# --------------------------------------------------------------------------
+
+
+def _dist_cfg(**kw):
+    from repro_torch.core import PartitionerConfig
+
+    return PartitionerConfig(engine="dist", dist_shards=8, preset="minimal", seed=0, **kw)
+
+
+def _noisy_halves(side: int):
+    """mesh2d(side)'s two halves with 15 % of the labels flipped (the
+    reference's distributed refinement test input)."""
+    import numpy as np
+
+    lab = (np.arange(side * side) // side >= side // 2).astype(np.int32)
+    lab[np.random.default_rng(0).random(side * side) < 0.15] ^= 1
+    return lab
+
+
+def check_dist_small(torch, devs=("cuda", "cpu")) -> None:
+    """Phase 8a (sweeps): the distributed clustering (rmat(12, 8)) and
+    refinement (noisy mesh2d(64)) sweeps on 8 PEs, the distributed
+    contraction, and partition(engine="dist", dist_shards=8) on ba-8192 at
+    k=2 give the same result with every PE on the card as on the CPU."""
+    import numpy as np
+    from repro_torch.core import contract, partition
+    from repro_torch.core.distributed_lp import (
+        build_plan, contract_distributed, lp_cluster_distributed, lp_refine_distributed,
+    )
+    from repro_torch.core.metrics import lmax
+    from repro_torch.graph import barabasi_albert, mesh2d, rmat
+
+    a, b = devs
+    g = rmat(12, 8, seed=2)
+    plan = build_plan(g, 8, chunks_per_shard=4)
+    clus = {d: lp_cluster_distributed(plan, U=lmax(g.n, 2, 0.03) / 14, iters=3, seed=1,
+                                      devices=[d]) for d in devs}
+    if not np.array_equal(clus[a], clus[b]):
+        _fail(f"8a: distributed clustering differs in {int((clus[a] != clus[b]).sum())} labels")
+    gm = mesh2d(64)
+    planm = build_plan(gm, 8, chunks_per_shard=4, order="random")
+    ref = {d: lp_refine_distributed(planm, _noisy_halves(64), k=2, U=lmax(gm.n, 2, 0.03),
+                                    iters=6, seed=0, devices=[d]) for d in devs}
+    if not np.array_equal(ref[a], ref[b]):
+        _fail(f"8a: distributed refinement differs in {int((ref[a] != ref[b]).sum())} labels")
+    host, C_host = contract(g, clus[a])
+    for d in devs:
+        coarse, C = contract_distributed(plan, clus[a], devices=[d])
+        if not (np.array_equal(C, C_host) and all(
+                np.array_equal(getattr(coarse, f), getattr(host, f))
+                for f in ("indptr", "indices", "ew", "nw"))):
+            _fail(f"8a: contract_distributed on {d} differs from the host contract")
+    gb = barabasi_albert(8192, 6, seed=3)
+    reps = {d: partition(gb, _dist_cfg(k=2, coarsest_factor=100), device=d) for d in devs}
+    ra, rb = reps[a], reps[b]
+    if not (np.array_equal(ra.labels, rb.labels) and ra.cut == rb.cut
+            and ra.level_sizes == rb.level_sizes and ra.cycle_cuts == rb.cycle_cuts):
+        _fail(f"8a: partition(engine='dist') differs: cut {ra.cut} vs {rb.cut}, levels "
+              f"{ra.level_sizes} vs {rb.level_sizes}")
+    print(f"8a dist sweeps rmat(12, 8) P=8 ({np.unique(clus[a]).size} clusters), mesh2d(64) "
+          f"refine, contract_distributed == host contract, partition(engine='dist') ba-8192 "
+          f"k=2 (cut {ra.cut}, levels {ra.level_sizes}): {a} == {b}", flush=True)
+
+
+def check_sharded_ga_small(torch) -> None:
+    """Phase 8a (GA): the batched GA with its 4 islands split over
+    ``["cuda"] * 2`` and ``["cuda"] * 4`` gives the unsharded GA's labels
+    on the card: the reference's sharding test case (planted_partition(600),
+    k=2, 3 generations) and one whose result depends on the gossip crossing
+    shards (barabasi_albert(1000, 3), k=4, 4 generations)."""
+    from repro_torch.core import LPEngine
+    from repro_torch.core.evolutionary import EvoConfig
+    from repro_torch.core.metrics import lmax
+    from repro_torch.graph import barabasi_albert, planted_partition
+
+    cases = (("planted_partition(600)", planted_partition(600, 6, p_in=0.05, p_out=0.004,
+                                                          seed=1), 2, 3),
+             ("barabasi_albert(1000, 3)", barabasi_albert(1000, 3, seed=2), 4, 4))
+    for name, g, k, gens in cases:
+        cfg = EvoConfig(k=k, Lmax=lmax(g.n, k, 0.03), islands=4, pop_per_island=2,
+                        generations=gens, refine_iters=3, seed=5)
+        single = LPEngine(g, seed=0, device="cuda").evolve_device(g, cfg)
+        for D in (2, 4):
+            sharded = LPEngine(g, seed=0, device="cuda").evolve_device(
+                g, cfg, shard=True, devices=["cuda"] * D)
+            if not torch.equal(sharded, single):
+                _fail(f"8a: the GA on {name} sharded over [cuda] * {D} differs from the "
+                      f"unsharded GA in {int((sharded != single).sum())} labels")
+        print(f"8a GA 4x2, {gens} generations, {name} k={k}: sharded over [cuda] * 2 "
+              f"and * 4 == unsharded", flush=True)
+
+
+class _Counted:
+    """Counts the calls of a module function while installed, and records
+    CUDA events around each, for the per-call device time."""
+
+    def __init__(self, torch, module, name: str, timed: bool = False):
+        self.torch, self.module, self.name = torch, module, name
+        self.fn = getattr(module, name)
+        self.calls, self.events, self.timed = 0, [], timed
+
+    def __enter__(self):
+        def wrapper(*a, **kw):
+            self.calls += 1
+            if not self.timed:
+                return self.fn(*a, **kw)
+            ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = self.fn(*a, **kw)
+            ev[1].record()
+            self.events.append(ev)
+            return out
+
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+    def ms(self) -> list:
+        self.torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def _dist_breakdown(tracer, seconds: float) -> dict:
+    """Seconds of a dist partition() by span: host planning and the sweeps
+    by mode, the rest of the coarsening (host contraction, numpy levels)
+    and of the refinement (guard, numpy levels), the host GA and the
+    finish (balance repair, final cut)."""
+    sums = {}
+    for ev in tracer.events:
+        a = ev.get("args", {})
+        key = {"dist.plan": f"dist.plan.{a.get('order')}",
+               "dist.sweep": f"dist.sweep.{a.get('mode')}",
+               "vcycle.host": f"host.{a.get('phase')}"}.get(ev["name"], ev["name"])
+        sums[key] = sums.get(key, 0.0) + ev["dur"] / 1e6
+    out = {
+        "plan_degree": sums.get("dist.plan.degree", 0.0),
+        "sweep_cluster": sums.get("dist.sweep.cluster", 0.0),
+        "plan_random": sums.get("dist.plan.random", 0.0),
+        "sweep_refine": sums.get("dist.sweep.refine", 0.0),
+        "evolve_host": sums.get("vcycle.evolve", 0.0),
+        "finish": sums.get("vcycle.finish", 0.0),
+    }
+    # the spans of one level nest in its vcycle.host span
+    out["coarsen_other"] = (sums.get("host.coarsen", 0.0) - out["plan_degree"]
+                            - out["sweep_cluster"])
+    out["refine_other"] = (sums.get("host.refine", 0.0) - out["plan_random"]
+                           - out["sweep_refine"])
+    out["other"] = seconds - sum(out.values())
+    return out
+
+
+def check_dist_full(torch, g, phase4_cut: float, out_dir: Path) -> dict:
+    """Phase 8b: partition(engine="dist", dist_shards=8, preset="minimal",
+    coarsest_factor=100, seed=0) at k=16 on the phase-4 graph, all 8 PEs on
+    the card: feasible, below the hash cut.  Prints the run's seconds and
+    level sizes, each PE's shard sizes, the synchronized times of
+    build_plan (host), one clustering and one refinement on the finest
+    graph, the CUDA-event times of one phase's per-PE program and of one
+    exchange, contract_distributed against the host contract (equal, both
+    timed), the sharded GA's generation step on the full graph against the
+    unsharded one (equal labels), and the peak device memory.  The run's
+    span trace goes to ``out_dir``."""
+    import numpy as np
+    import repro_torch.core.distributed_lp as TD
+    import repro_torch.core.engine as TE
+    from repro_torch.core import LPEngine, contract, partition
+    from repro_torch.core.evolutionary import EvoConfig
+    from repro_torch.core.metrics import cut_np, lmax
+    from repro_torch.kernels.lp_score import lp_score_rows
+    from repro_torch.kernels.lp_score.threefry import fold_in, prng_key, split
+    from repro_torch.launch import make_mesh
+    from repro_torch.obs import Tracer, set_tracer
+
+    k = 16
+    cfg = _dist_cfg(k=k, coarsest_factor=100)
+    L = lmax(float(g.nw.sum()), k, cfg.eps)
+    hash_lab = (np.arange(g.n, dtype=np.int64) * 2654435761 % (1 << 32) % k)
+    hash_cut = cut_np(g, hash_lab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lp_score_rows.launches = 0
+    tracer = Tracer()
+    set_tracer(tracer)
+    with _Counted(torch, TD, "shard_phase") as ph, _Counted(torch, TD, "exchange") as ex:
+        t = time.perf_counter()
+        rep = partition(g, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    set_tracer(None)
+    peak_run = torch.cuda.max_memory_allocated()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tracer.export_chrome(str(out_dir / "chip_smoke_trace_dist.json"))
+    print(f"8b partition(engine='dist', dist_shards=8, minimal) k={k} on n={g.n}, m={g.m}: "
+          f"{wall:.3f} s, cut {rep.cut} ({rep.cut / hash_cut:.4f} of hash cut {hash_cut}, "
+          f"{rep.cut / phase4_cut:.4f} of phase 4's {phase4_cut}), imbalance "
+          f"{rep.imbalance:.5f}, feasible {rep.feasible}", flush=True)
+    print(f"8b level_sizes {rep.level_sizes}; shard_phase calls {ph.calls}, exchanges "
+          f"{ex.calls}, lp_score_rows launches {lp_score_rows.launches}, evo_calls "
+          f"{rep.engine_stats['evo_calls']}; peak device memory {peak_run / 2**30:.3f} GiB",
+          flush=True)
+    print("8b breakdown_s " + json.dumps(
+        {k_: round(v, 4) for k_, v in _dist_breakdown(tracer, rep.seconds).items()}),
+        flush=True)
+    if not rep.feasible or rep.imbalance > cfg.eps + 1e-9:
+        _fail(f"8b: infeasible partition, imbalance {rep.imbalance}")
+    if not rep.cut < hash_cut:
+        _fail(f"8b: cut {rep.cut} not below the hash partition's {hash_cut}")
+    if ph.calls == 0 or ex.calls == 0:
+        _fail("8b: the run made no distributed sweep")
+
+    # ---- the finest level's plan, sweeps and contraction, one at a time
+    t = time.perf_counter()
+    plan = TD._build_plan_impl(g, 8, cfg.dist_chunks_per_shard, "degree", cfg.seed)
+    plan_s = time.perf_counter() - t
+    sg = plan.sg
+    print("8b shards (PE: n_local, n_ghost, n_iface, m_local): " + json.dumps(
+        {p: [int(sg.n_local[p]), int(sg.n_ghost[p]), int(sg.n_iface[p]), int(sg.m_local[p])]
+         for p in range(8)}) + f"; chunk layout (P, C, Nc, Ec) {list(plan.ch_nodes.shape)}"
+        f" + [{plan.ch_edge_dst.shape[2]}]; build_plan (host) {plan_s:.3f} s", flush=True)
+    U = max(float(g.nw.max()), L / cfg.f_social)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    clus = TD.lp_cluster_distributed(plan, U=U, iters=cfg.lp_iters_coarsen, seed=1)
+    cluster_s = time.perf_counter() - t
+    plan_r = TD._build_plan_impl(g, 8, cfg.dist_chunks_per_shard, "random", cfg.seed)
+    t = time.perf_counter()
+    TD.lp_refine_distributed(plan_r, rep.labels, k=k, U=L, iters=cfg.lp_iters_refine,
+                             seed=1)
+    refine_s = time.perf_counter() - t
+    C = plan.ch_nodes.shape[1]
+    print(f"8b one lp_cluster_distributed {cluster_s:.3f} s ({cfg.lp_iters_coarsen * C} "
+          f"phases, {np.unique(clus).size} clusters), one lp_refine_distributed "
+          f"{refine_s:.3f} s ({cfg.lp_iters_refine * plan_r.ch_nodes.shape[1]} phases)",
+          flush=True)
+
+    # one phase's per-PE program (PE 0, chunk 0) and one exchange, CUDA events
+    mesh = make_mesh(8)
+    shards = TD.upload_plan(plan, mesh)
+    ll0, lg0 = TD._initial_labels(sg, None)
+    lls = [torch.from_numpy(ll0[p]).to(mesh[p]) for p in range(8)]
+    lgs = [torch.from_numpy(lg0[p]).to(mesh[p]) for p in range(8)]
+    _, sub = split(fold_in(prng_key(1), 0))
+    prog = {f"shard_phase_cluster_pe{p}": _time_ms(
+        lambda p=p: TD.shard_phase(shards[p], 0, lls[p], lgs[p], sub, U), torch,
+        warmup=1, batches=3, reps=3) for p in (0, 7)}
+    ll_r, lg_r = TD._initial_labels(sg, rep.labels)
+    lls_r = [torch.from_numpy(ll_r[p]).to(mesh[p]) for p in range(8)]
+    lgs_r = [torch.from_numpy(lg_r[p]).to(mesh[p]) for p in range(8)]
+    tw = torch.stack([TD.block_weights(st, ll, k) for st, ll in zip(shards, lls_r)]).sum(0)
+    tw[k] = float("inf")
+    prog["shard_phase_refine_pe0"] = _time_ms(
+        lambda: TD.shard_phase(shards[0], 0, lls_r[0], lgs_r[0], sub, L, tw, k), torch,
+        warmup=1, batches=3, reps=3)
+    prog["exchange"] = _time_ms(lambda: TD.exchange(shards, lls, lgs), torch,
+                                warmup=1, batches=3, reps=3)
+    print("8b device programs at the finest level's shapes (CUDA events), ms: "
+          + json.dumps({k_: round(v, 4) for k_, v in prog.items()}), flush=True)
+    del shards, lls, lgs, lls_r, lgs_r
+
+    # ---- contract_distributed against the host contract
+    torch.cuda.synchronize()
+    with _Counted(torch, TD, "_shard_quotient", timed=True) as q:
+        t = time.perf_counter()
+        coarse, C_map = TD.contract_distributed(plan, clus)
+        dist_s = time.perf_counter() - t
+    t = time.perf_counter()
+    host, C_host = contract(g, clus)
+    host_s = time.perf_counter() - t
+    if not (np.array_equal(C_map, C_host) and all(
+            np.array_equal(getattr(coarse, f), getattr(host, f))
+            for f in ("indptr", "indices", "ew", "nw"))):
+        _fail("8b: contract_distributed differs from the host contract")
+    q_ms = q.ms()
+    print(f"8b contract_distributed == host contract (n_c={coarse.n}, m_c={coarse.m}): "
+          f"{dist_s:.3f} s (per-PE device programs {sum(q_ms):.3f} ms in all, max "
+          f"{max(q_ms):.3f} ms) vs host {host_s:.3f} s", flush=True)
+    del plan, plan_r
+
+    # ---- the sharded GA's generation step at full width (Ab = 2^19)
+    ga = EvoConfig(k=k, Lmax=L, islands=2, pop_per_island=2, generations=2,
+                   refine_iters=6, seed=7, seed_individuals=[rep.labels])
+    labs, steps = {}, {}
+    for name, kw in (("unsharded", {}), ("sharded", dict(shard=True, devices=["cuda:0"] * 2))):
+        eng = LPEngine(g, seed=0)
+        eng._evo_arrays(g)
+        with _Counted(torch, TE, "evo_generation_step_sharded", timed=True) as st:
+            labs[name] = eng.evolve_device(g, ga, **kw)
+        steps[name] = st.ms()
+        if st.calls != ga.generations:
+            _fail(f"8b: {name} GA made {st.calls} generation steps, want {ga.generations}")
+        del eng
+    if not torch.equal(labs["sharded"], labs["unsharded"]):
+        _fail(f"8b: the GA sharded over [cuda:0] * 2 differs from the unsharded GA in "
+              f"{int((labs['sharded'] != labs['unsharded']).sum())} labels")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"8b GA 2x2, 2 generations, full graph, seeded with the run's labels: sharded "
+          f"over [cuda:0] * 2 == unsharded; generation step ms (CUDA events) " + json.dumps(
+              {k_: [round(x, 3) for x in v] for k_, v in steps.items()})
+          + f"; peak device memory over phase 8b {peak / 2**30:.3f} GiB", flush=True)
+    torch.cuda.empty_cache()
+    return dict(rep=rep, wall=wall, phase_calls=ph.calls, exchanges=ex.calls)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -1515,6 +1844,14 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"phase 7: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- phase 8: the distributed path (this slice's path) and the
+    # island-sharded GA; the path runs no hand-written kernel
+    t = time.perf_counter()
+    check_dist_small(torch)
+    check_sharded_ga_small(torch)
+    check_dist_full(torch, g, rep.cut, Path(args.out))
+    print(f"phase 8: {time.perf_counter() - t:.1f} s", flush=True)
     kernels = [dict(
         name="lp_score_rows",
         route="cuda",
@@ -1526,7 +1863,7 @@ def main(argv=None) -> int:
         plain_ms=m["plain_ms"],
         bound_ms=m["bound_ms"],
         bound_by=m["bound_by"],
-        library_ms=None,   # no single PyTorch call computes the masked row histogram
+        library_ms=m["library_ms"],
     )]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

@@ -12,6 +12,8 @@ graph with identical cut and balance.
   result is structure-identical to the host :func:`contract`.
 * :func:`contract` — the host numpy path (numpy engine, small levels, and
   the test oracle).
+* :func:`contract_arcs` — one PE's quotient-arc dedup of the distributed
+  contraction (``distributed_lp.contract_distributed``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ __all__ = [
     "CoarseMap",
     "PACKED_KEY_SPACE",
     "contract",
+    "contract_arcs",
     "contract_device",
     "packed_key_wbits",
     "relabel",
@@ -246,3 +249,35 @@ def contract_device(src, dst, ew, nw, labels, n: int, m: int, *, wbits: int = 0)
         cu_sorted, torch.arange(Nb + 1, dtype=torch.int64, device=dev)
     )
     return C, n_c, nw_c, indptr_c, src_c, dst_c, ew_c, m_c, nwmax_c, ewmax_c
+
+
+def contract_arcs(cu: torch.Tensor, cv: torch.Tensor, w: torch.Tensor,
+                  valid: torch.Tensor, n_c: int):
+    """Quotient-arc dedup of one shard, at static shape (the reference's
+    ``contract_arcs_jnp``).
+
+    ``cu``/``cv`` are the (E,) int64 coarse endpoints of the local arcs,
+    ``w`` their float32 weights; arcs with ``valid`` False and self arcs
+    are dropped.  Returns ``(cu', cv', w', valid')``: the distinct
+    ``(cu, cv)`` pairs in increasing order with their summed weights,
+    padded to E.  The key is one int64 ``cu * n_c + cv`` under a stable
+    sort (the reference's is int32 without x64, and wraps once
+    ``n_c > 46340``; this one does not).
+    """
+    E = cu.shape[0]
+    big = int(n_c)
+    ok = valid & (cu != cv)
+    key = torch.where(ok, cu * big + cv, big * big)
+    key_s, order = torch.sort(key, stable=True)
+    w_s = torch.where(ok, w, 0.0)[order]
+    live = key_s < big * big
+    newrun = torch.cat([live.new_ones(1), key_s[1:] != key_s[:-1]]) & live
+    run = torch.where(live, torch.cumsum(newrun, 0) - 1, E - 1)
+    # every write to one index carries the same value: the order is moot
+    w_out = torch.zeros(E, dtype=torch.float32, device=cu.device).index_add_(0, run, w_s)
+    cu_out = torch.zeros(E, dtype=torch.int64, device=cu.device).index_put_(
+        (run,), key_s // big)
+    cv_out = torch.zeros(E, dtype=torch.int64, device=cu.device).index_put_(
+        (run,), key_s % big)
+    valid_out = torch.arange(E, device=cu.device) < newrun.sum()
+    return cu_out, cv_out, torch.where(valid_out, w_out, 0.0), valid_out

@@ -24,8 +24,8 @@ torch twin of ``repro.core.engine.LPEngine``):
 * **Batched evolution** — ``evolve_device`` runs the island GA of
   :mod:`~repro_torch.core.evo_device` on the coarsest graph's cached pack
   and arc tensors (a resident GraphDev is never materialized), gated by
-  ``can_evolve_device``; ``evolve_oracle`` runs its numpy oracle on the
-  same inputs.
+  ``can_evolve_device``, its islands optionally split into shards over a
+  device list; ``evolve_oracle`` runs its numpy oracle on the same inputs.
 * **Incremental repair** — ``repair`` (the dynamic subsystem's hot path)
   sweeps a pack of the affected region only, then the region-masked rounds
   of :mod:`repro_torch.dynamic.repair`, behind a cut/feasibility guard.
@@ -57,10 +57,16 @@ from ..graph.packing import (
     plan_region_pack,
 )
 from ..kernels.lp_score.ops import dense_round_device
+from ..launch.mesh import pe_devices
 from ..obs import MetricsRegistry, RegistryBackedStats
 from ..obs import span as _obs_span
 from .contraction import CoarseMap, contract_device, packed_key_wbits
-from .evo_device import EvoGraph, best_row, evo_generation_step, evo_seed_step
+from .evo_device import (
+    EvoGraph,
+    best_row,
+    evo_generation_step_sharded,
+    evo_seed_step,
+)
 from .evolutionary import EvoInputs, evolve_batched_numpy, grow_rounds_bound
 from .label_propagation import hash_base_u32, lp_sweep, make_order
 from .metrics import cut_from_arcs
@@ -762,13 +768,21 @@ class LPEngine:
         (shared with refine sweeps), so the graph uploads once per run."""
         return self._pack(g, "random"), self._arena(g), pow2(g.n + 1)
 
-    def evolve_device(self, g: AnyGraph, cfg) -> torch.Tensor:
+    def evolve_device(self, g: AnyGraph, cfg, shard: bool = False,
+                      devices=None) -> torch.Tensor:
         """Batched island GA; returns the best partition of ``g`` as an (n,)
         int32 tensor on the engine's device, bit-identical to
-        :meth:`evolve_oracle` under the same config on integral weights."""
+        :meth:`evolve_oracle` under the same config on integral weights.
+
+        ``shard=True`` splits the islands over the mesh ``devices``
+        (:func:`~repro_torch.launch.pe_devices`: every CUDA device unless
+        given), one shard per entry, when there are generations, more than
+        one entry and ``islands % D == 0`` (the reference's rule); else the
+        one shard is the whole batch on the engine's device.  The result
+        is the same either way."""
         n, k = g.n, cfg.k
         I, P, G = cfg.islands, cfg.pop_per_island, cfg.generations
-        Kb, Sb, Ib = pow2(k + 1), pow2(I * P), pow2(I)
+        Kb, Sb = pow2(k + 1), pow2(I * P)
         dp, ar, Ab = self._evo_arrays(g)
         EG = EvoGraph(
             pack=(dp.nodes, dp.node_valid, dp.edge_dst, dp.edge_w,
@@ -793,11 +807,50 @@ class LPEngine:
             EG, _upload(seed_lab, self.device, torch.int64),
             _upload(seed_mask, self.device), I, P, grow_rounds_bound(n, k, g.m),
         )
-        for gen in range(G):
-            self.stats.evo_calls += 1
-            labs, keys = evo_generation_step(EG, labs, keys, gen, 0, I, P, Ib)
+        mesh = pe_devices(devices) if shard and G > 0 else ()
+        if len(mesh) < 2 or I % len(mesh):
+            mesh = (self.device,)
+        labs, keys = self._generations(EG, cfg, labs, keys, mesh)
         bidx, _ = best_row(labs, keys, I * P)
         return labs[bidx][:n].to(torch.int32)
+
+    def _generations(self, EG: EvoGraph, cfg, labs, keys, mesh):
+        """The generation loop over ``D = len(mesh)`` island shards: shard
+        ``d`` takes islands ``[d * I_loc, (d + 1) * I_loc)`` as
+        ``(pow2(I_loc * P), Ab)`` rows on ``mesh[d]`` (padding rows: label
+        k, key 2^31 - 1), and the result is flattened back to the
+        unsharded ``(Sb, Ab)`` layout for the best-row selection.  With
+        ``D = 1`` that layout is the shard's own, so nothing is copied."""
+        I, P, G = cfg.islands, cfg.pop_per_island, cfg.generations
+        D = len(mesh)
+        I_loc = I // D
+        S_loc, Sb_loc, Ib_loc = I_loc * P, pow2(I_loc * P), pow2(I_loc)
+        Sb, Ab = labs.shape
+        Gs = [EG.to(dev) for dev in mesh]   # no copy on the engine's device
+        if D == 1:
+            lab_sh, key_sh = [labs], [keys]
+        else:
+            lab_sh, key_sh = [], []
+            for d, dev in enumerate(mesh):
+                rows = slice(d * S_loc, (d + 1) * S_loc)
+                lb = torch.full((Sb_loc, Ab), EG.k, dtype=labs.dtype, device=dev)
+                kb = torch.full((Sb_loc,), 2**31 - 1, dtype=keys.dtype, device=dev)
+                lb[:S_loc] = labs[rows].to(dev)
+                kb[:S_loc] = keys[rows].to(dev)
+                lab_sh.append(lb)
+                key_sh.append(kb)
+        for gen in range(G):
+            self.stats.evo_calls += 1
+            lab_sh, key_sh = evo_generation_step_sharded(
+                Gs, lab_sh, key_sh, gen, I_loc, P, Ib_loc)
+        if D == 1:
+            return lab_sh[0], key_sh[0]
+        lab_out = torch.full((Sb, Ab), EG.k, dtype=labs.dtype, device=self.device)
+        key_out = torch.full((Sb,), 2**31 - 1, dtype=keys.dtype, device=self.device)
+        for d in range(D):
+            lab_out[d * S_loc:(d + 1) * S_loc] = lab_sh[d][:S_loc].to(self.device)
+            key_out[d * S_loc:(d + 1) * S_loc] = key_sh[d][:S_loc].to(self.device)
+        return lab_out, key_out
 
     def evolve_oracle(self, g: AnyGraph, cfg, trace=None) -> np.ndarray:
         """The sequential numpy oracle on the same pack and arc tensors the

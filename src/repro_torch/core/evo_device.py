@@ -29,6 +29,7 @@ stopped?).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -59,7 +60,7 @@ from .evolutionary import (
 from .label_propagation import hash_base_u32, hash_jitter, hash_mix, lp_sweep_batched
 from .metrics import block_weights_dense, cut_from_arcs
 
-__all__ = ["EvoGraph", "evo_seed_step", "evo_generation_step"]
+__all__ = ["EvoGraph", "evo_seed_step", "evo_generation_step_sharded"]
 
 _NEG = -1e30
 _HAS = float(np.float32(_NEG / 2))      # "has an eligible block" threshold
@@ -92,6 +93,14 @@ class EvoGraph:
         self.iota = torch.arange(self.nw.shape[0], dtype=torch.int64, device=dev)
         self.kio = torch.arange(self.Kb, dtype=torch.int64, device=dev)
         self.live = self.iota < self.n
+
+    def to(self, device) -> "EvoGraph":
+        """A copy with every tensor on ``device``."""
+        return dataclasses.replace(
+            self, pack=tuple(t.to(device) for t in self.pack),
+            src=self.src.to(device), dst=self.dst.to(device), ew=self.ew.to(device),
+            nw=self.nw.to(device), deg_f=self.deg_f.to(device),
+        )
 
 
 def _hash_u32(base, a, b):
@@ -367,11 +376,11 @@ def evo_seed_step(G: EvoGraph, seed_labels, seed_mask, I: int, P: int, grow_roun
     return labs, keys
 
 
-def evo_generation_step(G: EvoGraph, labs, keys, gen: int, island_offset: int,
-                        I: int, P: int, Ib: int):
-    """One generation: selection, combine or mutate, batched refinement,
-    elitism, replacement of each island's worst, then gossip of the global
-    best.  Islands hash on their global id ``island_offset + i``."""
+def _generation_local(G: EvoGraph, labs, keys, gen: int, island_offset: int,
+                      I: int, P: int, Ib: int):
+    """A generation up to its gossip: selection, combine or mutate, batched
+    refinement, elitism and replacement of each island's worst.  Islands
+    hash on their global id ``island_offset + i``."""
     Sb = labs.shape[0]
     i_io = torch.arange(Ib, dtype=torch.int64, device=labs.device)
     i_ctx = i_io + island_offset
@@ -400,11 +409,38 @@ def evo_generation_step(G: EvoGraph, labs, keys, gen: int, island_offset: int,
     ckeys = torch.where(keep, ckeys, bkeys)
 
     # ---- synchronous replacement of each island's worst
-    labs, keys = _replace_worst(labs, keys, children, ckeys, I, P, Ib, strict=False)
+    return _replace_worst(labs, keys, children, ckeys, I, P, Ib, strict=False)
 
-    # ---- gossip: the global best replaces each island's worst
-    bidx, bkey = best_row(labs, keys, I * P)
-    labs, keys = _replace_worst(
-        labs, keys, labs[bidx].expand(Ib, -1), bkey.expand(Ib), I, P, Ib, strict=True
-    )
-    return labs, keys
+
+def _gossip(labs, keys, blab, bkey, I: int, P: int, Ib: int):
+    """The global best ``(blab, bkey)`` replaces each island's worst if it
+    is strictly better."""
+    return _replace_worst(labs, keys, blab.expand(Ib, -1), bkey.expand(Ib),
+                          I, P, Ib, strict=True)
+
+
+def evo_generation_step_sharded(Gs, labs, keys, gen: int, I_loc: int, P: int,
+                                Ib_loc: int):
+    """One generation over ``D`` island shards (the reference's
+    ``evo_generation_step`` at ``D = 1``, its ``make_generation_sharded``
+    above).  Shard ``d`` holds islands ``[d * I_loc, (d + 1) * I_loc)`` as
+    ``(Sb_loc, Ab)`` rows on its own device with its own
+    :class:`EvoGraph` ``Gs[d]``; the gossip takes the lowest key over the
+    shards' bests, the lowest ``d`` winning ties (the reference's
+    ``all_gather``).  Every ``D`` that divides the islands gives the same
+    labels."""
+    D = len(labs)
+    out = [_generation_local(Gs[d], labs[d], keys[d], gen, d * I_loc, I_loc, P, Ib_loc)
+           for d in range(D)]
+    best = [best_row(lb, kb, I_loc * P) for lb, kb in out]
+    new_labs, new_keys = [], []
+    for d, (lb, kb) in enumerate(out):
+        dev = lb.device
+        bkeys = torch.stack([bk.to(dev) for _, bk in best])          # (D,)
+        win = torch.where(bkeys == bkeys.min(),
+                          torch.arange(D, device=dev), D).min()
+        blabs = torch.stack([o[0][bi].to(dev) for o, (bi, _) in zip(out, best)])
+        lb, kb = _gossip(lb, kb, blabs[win], bkeys[win], I_loc, P, Ib_loc)
+        new_labs.append(lb)
+        new_keys.append(kb)
+    return new_labs, new_keys

@@ -22,9 +22,13 @@ Pipeline per V-cycle:
 Presets mirror the paper §V-A: *fast* (2 V-cycles, GA gets only its
 initial population), *eco* (5 V-cycles + GA generations), *minimal*.
 
-Not ported yet: the distributed engine (``engine="dist"``) and the
-reference's ``evo_shard_islands`` (islands sharded over several devices);
-both come with the distributed slice.
+``engine="dist"`` runs the paper's distributed SCLaP
+(:mod:`~repro_torch.core.distributed_lp`) on ``dist_shards`` PEs placed
+cyclically on the ``devices`` list: unrestricted clustering and every
+refinement at or above ``numpy_below`` nodes; restricted clustering (from
+the second V-cycle on) takes the engine, contraction runs on the host and
+the coarsest stage takes the host GA, as in the reference.
+``evo_shard_islands`` splits the batched GA's islands over ``devices``.
 """
 
 from __future__ import annotations
@@ -38,8 +42,10 @@ import torch
 
 from ..device import resolve_device
 from ..graph.csr import GraphDev, GraphNP
+from ..launch.mesh import pe_devices
 from ..obs import span as _obs_span
 from .contraction import CoarseMap, contract, project_labels
+from .distributed_lp import build_plan, lp_cluster_distributed, lp_refine_distributed
 from .engine import LPEngine
 from .evolutionary import EvoConfig, evolve
 from .fm import fm_refine
@@ -52,8 +58,7 @@ __all__ = ["PartitionerConfig", "PartitionReport", "partition"]
 
 @dataclass
 class PartitionerConfig:
-    """The reference's configuration, field for field, less
-    ``evo_shard_islands`` (not ported yet)."""
+    """The reference's configuration, field for field."""
 
     k: int = 2
     eps: float = 0.03
@@ -70,13 +75,16 @@ class PartitionerConfig:
     shrink_stall: float = 0.95      # stop if n' > stall * n
     seed: int = 0
     # engine: "auto"/"jnp" run the device engine (the reference's name is
-    # kept so configurations carry across); "numpy" the sequential one
-    engine: str = "auto"            # auto | jnp | numpy
+    # kept so configurations carry across); "numpy" the sequential one;
+    # "dist" the distributed sweeps on dist_shards PEs
+    engine: str = "auto"            # auto | jnp | numpy | dist
     numpy_below: int = 4096         # use the sequential engine below this n
     target_chunks: int = 64
     # "device" chains cluster -> contract -> next-level pack on the device;
     # "host" round-trips each level through the numpy contract()
     coarsen_engine: str = "device"  # device | host
+    dist_shards: int = 0            # engine="dist": number of PEs
+    dist_chunks_per_shard: int = 4
     # "chunked" = chunked-sequential LP sweep; "dense" = synchronous
     # kernel-scored dense rounds at levels >= dense_min_n nodes
     refine_engine: str = "chunked"  # chunked | dense
@@ -86,6 +94,9 @@ class PartitionerConfig:
     # picks device whenever the engine is active and its exact-weight gate
     # (LPEngine.can_evolve_device) passes, host otherwise
     evo_engine: str = "auto"        # auto | device | host
+    # split the batched GA's islands over the device list (needs
+    # islands % len(devices) == 0 and generations > 0); bit-identical
+    evo_shard_islands: bool = False
     # gain-based FM pass on the finest level (beyond the paper; "strong")
     fm_finest: bool = False
     fm_finest_max_n: int = 2_000_000
@@ -145,14 +156,27 @@ def _f_value(cfg: PartitionerConfig, gtype: str, cycle: int, rng) -> float:
 
 
 def _use_numpy(g, cfg) -> bool:
-    return cfg.engine == "numpy" or (cfg.engine == "auto" and g.n < cfg.numpy_below)
+    return cfg.engine == "numpy" or (
+        cfg.engine in ("auto", "dist") and g.n < cfg.numpy_below
+    )
 
 
-def _cluster(g, U, iters, seed, restrict, cfg, eng) -> np.ndarray:
+def _plan(g, cfg, order: str):
+    """The distributed plan of ``g``, keyed on the run's seed (not the
+    sweep's), so repeated calls on one graph hit the plan cache."""
+    return build_plan(g, cfg.dist_shards, chunks_per_shard=cfg.dist_chunks_per_shard,
+                      order=order, seed=cfg.seed)
+
+
+def _cluster(g, U, iters, seed, restrict, cfg, eng, devices) -> np.ndarray:
     if _use_numpy(g, cfg):
         return sclap_numpy(
             g, np.arange(g.n), U=U, iters=iters, seed=seed, restrict=restrict
         ).labels
+    if cfg.engine == "dist" and restrict is None:
+        # restricted clustering (V-cycles >= 2) stays on the engine
+        return lp_cluster_distributed(_plan(g, cfg, "degree"), U=U, iters=iters,
+                                      seed=seed, devices=devices)
     return eng.cluster(g, U=U, iters=iters, seed=seed, restrict=restrict).cpu().numpy()
 
 
@@ -165,14 +189,25 @@ def _refine_numpy(g, labels, k, Lmax, iters, seed) -> np.ndarray:
     return fm_refine(g, lab, k, Lmax, seed=seed)
 
 
-def _uncoarsen(g, hierarchy, lab, k, L, cfg, rng, eng):
+def _refine_host(g, labels, k, Lmax, iters, seed, cfg, devices) -> np.ndarray:
+    """A host level's refinement: the distributed sweep on dist levels,
+    else :func:`_refine_numpy`."""
+    if cfg.engine == "dist" and not _use_numpy(g, cfg):
+        return lp_refine_distributed(_plan(g, cfg, "random"), labels, k=k, U=Lmax,
+                                     iters=iters, seed=seed, devices=devices)
+    return _refine_numpy(g, labels, k, Lmax, iters, seed)
+
+
+def _uncoarsen(g, hierarchy, lab, k, L, cfg, rng, eng, devices):
     """Project + refine through the hierarchy.  On engine levels the labels
     stay on the device (projection, sweep or dense rounds, and the
-    monotonicity guard's cut and balance); host levels keep numpy."""
+    monotonicity guard's cut and balance); host and dist levels keep
+    numpy."""
     lab_dev = None  # engine arena labels, device-resident once set
     for gg_f, C in reversed(hierarchy):
         seed_r = int(rng.integers(1 << 30))
-        eng_level = eng is not None and not _use_numpy(gg_f, cfg)
+        eng_level = (eng is not None and cfg.engine != "dist"
+                     and not _use_numpy(gg_f, cfg))
         if eng_level:
             with _obs_span("vcycle.project", cat="vcycle", n=int(gg_f.n)) as sp:
                 lab_dev = eng.project(
@@ -204,7 +239,8 @@ def _uncoarsen(g, hierarchy, lab, k, L, cfg, rng, eng):
                     lab = lab.cpu().numpy()
                 lab = project_labels(lab, C_np)
                 before = cut_np(gg_h, lab)
-                ref = _refine_numpy(gg_h, lab, k, L, cfg.lp_iters_refine, seed_r)
+                ref = _refine_host(gg_h, lab, k, L, cfg.lp_iters_refine, seed_r,
+                                   cfg, devices)
                 bw_ref = np.bincount(ref, weights=gg_h.nw, minlength=k).max()
                 bw_old = np.bincount(lab, weights=gg_h.nw, minlength=k).max()
                 if cut_np(gg_h, ref) <= before or bw_old > L >= bw_ref:
@@ -216,16 +252,20 @@ def _uncoarsen(g, hierarchy, lab, k, L, cfg, rng, eng):
     return np.asarray(lab)
 
 
-def partition(g, cfg: PartitionerConfig, *, device=None) -> PartitionReport:
+def partition(g, cfg: PartitionerConfig, *, device=None, devices=None) -> PartitionReport:
     """Iterated multilevel V-cycles on ``g`` (GraphNP or GraphDev).
 
     Runs on CUDA unless ``device`` says otherwise; raises when no CUDA
-    device is present and none was named.  Returns the same report as the
-    reference's ``partition``.
+    device is present and none was named.  ``devices`` is the PE device
+    list of ``engine="dist"`` and ``evo_shard_islands``: by default
+    ``[device]`` when a device is named, else every visible CUDA device.
+    Returns the same report as the reference's ``partition``.
     """
     dev = resolve_device(device)
-    if cfg.engine not in ("auto", "jnp", "numpy"):
-        raise NotImplementedError(f"engine={cfg.engine!r} is not ported yet")
+    if cfg.engine not in ("auto", "jnp", "numpy", "dist"):
+        raise ValueError(f"unknown engine={cfg.engine!r}")
+    if cfg.engine == "dist" and cfg.dist_shards < 1:
+        raise ValueError(f"engine='dist' needs dist_shards >= 1, got {cfg.dist_shards}")
     if cfg.evo_engine not in ("auto", "device", "host"):
         raise ValueError(f"unknown evo_engine={cfg.evo_engine!r}")
     t0 = time.time()
@@ -246,7 +286,12 @@ def partition(g, cfg: PartitionerConfig, *, device=None) -> PartitionReport:
         if cfg.engine != "numpy"
         else None
     )
-    dev_coarsen = eng is not None and cfg.coarsen_engine == "device"
+    dev_coarsen = (eng is not None and cfg.coarsen_engine == "device"
+                   and cfg.engine != "dist")
+    if devices is None and device is not None:
+        devices = [dev]
+    uses_mesh = cfg.engine == "dist" or cfg.evo_shard_islands
+    pe_devs = pe_devices(devices) if uses_mesh else None
 
     best_labels: Optional[np.ndarray] = None
     best_cut = np.inf
@@ -303,7 +348,7 @@ def partition(g, cfg: PartitionerConfig, *, device=None) -> PartitionReport:
                                phase="coarsen"):
                     U = max(float(gg.nw.max()), L / f)
                     clus = _cluster(gg, U, cfg.lp_iters_coarsen, seed, restrict,
-                                    cfg, eng)
+                                    cfg, eng, pe_devs)
                     coarse, C = contract(gg, clus)
                 if coarse.n >= cfg.shrink_stall * gg.n or coarse.n < k:
                     break
@@ -336,6 +381,7 @@ def partition(g, cfg: PartitionerConfig, *, device=None) -> PartitionReport:
         )
         use_dev_evo = (
             eng is not None
+            and cfg.engine != "dist"
             and cfg.evo_engine in ("auto", "device")
             and eng.can_evolve_device(gg, k, cfg.islands, cfg.pop_per_island)
         )
@@ -344,13 +390,14 @@ def partition(g, cfg: PartitionerConfig, *, device=None) -> PartitionReport:
             if use_dev_evo:
                 # the coarsest graph stays resident (GraphDev or the cached
                 # arena), and so do the labels into the projection
-                lab = eng.evolve_device(gg, evo)
+                lab = eng.evolve_device(gg, evo, shard=cfg.evo_shard_islands,
+                                        devices=pe_devs)
                 sp.sync_on(lab)
             else:
                 lab = evolve(gg.to_host() if isinstance(gg, GraphDev) else gg, evo)
 
         # ---------------- uncoarsening + local search ----------------
-        lab = _uncoarsen(g, hierarchy, lab, k, L, cfg, rng, eng)
+        lab = _uncoarsen(g, hierarchy, lab, k, L, cfg, rng, eng, pe_devs)
         with _obs_span("vcycle.finish", cat="vcycle", n=int(g.n)):
             if cfg.fm_finest and g.n <= cfg.fm_finest_max_n:
                 lab = fm_refine(gh, lab, k, L, seed=int(rng.integers(1 << 30)))

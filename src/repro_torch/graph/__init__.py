@@ -12,6 +12,7 @@ from .generators import barabasi_albert, mesh2d, planted_partition, ring, rmat, 
 from .packing import (
     ChunkPack,
     EllPack,
+    ShardedGraph,
     chunk_geometry,
     ell_pack,
     gather_ell_device,
@@ -22,6 +23,7 @@ from .packing import (
     plan_chunks,
     plan_ell_rows,
     plan_region_pack,
+    shard_graph,
 )
 
 __all__ = [
@@ -31,4 +33,5 @@ __all__ = [
     "ChunkPack", "EllPack", "chunk_geometry", "ell_pack", "gather_ell_device",
     "gather_pack_device", "layout_nodes", "pack_chunks", "pad_pack",
     "plan_chunks", "plan_ell_rows", "plan_region_pack",
+    "ShardedGraph", "shard_graph",
 ]

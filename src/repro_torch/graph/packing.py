@@ -10,7 +10,9 @@ Host planners (numpy, array-for-array identical to ``repro.graph.packing``):
 * :func:`plan_region_pack` — the chunk plan of a node subset (the dynamic
   repairer's affected region);
 * :func:`plan_ell_rows` / :func:`ell_pack` — the row-split ELL layout of the
-  dense refinement (a node of degree d owns ``ceil(d / width)`` rows).
+  dense refinement (a node of degree d owns ``ceil(d / width)`` rows);
+* :func:`shard_graph` — the distributed graph (:class:`ShardedGraph`):
+  P contiguous node ranges with ghost and interface maps.
 
 Device gathers (torch): :func:`gather_pack_device` and
 :func:`gather_ell_device` fill the O(m) edge arrays of a host plan from a
@@ -44,6 +46,8 @@ __all__ = [
     "plan_ell_rows",
     "pad_pack",
     "ell_pack",
+    "ShardedGraph",
+    "shard_graph",
 ]
 
 
@@ -382,3 +386,119 @@ def ell_pack(g: GraphNP, width: int = 128, tile_rows: int = 256) -> EllPack:
         dst[:R] = np.where(valid, g.indices[pos_c], n)
         w[:R] = np.where(valid, g.ew[pos_c], 0.0)
     return EllPack(dst=dst, w=w, row_node=row_node, n=n)
+
+
+@dataclass(frozen=True)
+class ShardedGraph:
+    """The paper's distributed graph (§IV-A) in stacked, padded numpy arrays
+    (the reference's fields, shapes and dtypes).
+
+    Every array has a leading PE axis of size P and is padded to the
+    per-field maximum over the PEs.  Local index space of PE p: ``[0, n_p)``
+    are the owned nodes (globals ``range_start[p] .. range_start[p] + n_p``),
+    ``[n_p, n_p + g_p)`` the ghosts (sorted by global id).
+    """
+
+    P: int
+    n: int                       # global node count
+    range_start: np.ndarray      # (P,) int64 — first owned global id
+    n_local: np.ndarray          # (P,) int32 — owned nodes per PE
+    n_ghost: np.ndarray          # (P,) int32 — ghosts per PE
+    n_iface: np.ndarray          # (P,) int32 — interface nodes per PE
+    m_local: np.ndarray          # (P,) int32 — arcs per PE
+    indptr: np.ndarray           # (P, maxN + 1) int64 (local CSR, padded flat)
+    indices: np.ndarray          # (P, maxM) int32 — heads in LOCAL-EXT space
+    ew: np.ndarray               # (P, maxM) float32
+    nw: np.ndarray               # (P, maxN) float32 — owned node weights
+    ghost_global: np.ndarray     # (P, maxG) int64 — global id of each ghost
+    ghost_owner: np.ndarray      # (P, maxG) int32 — owning PE
+    ghost_slot: np.ndarray       # (P, maxG) int32 — slot in owner's iface buffer
+    ghost_nw: np.ndarray         # (P, maxG) float32 — ghost node weights
+    iface_nodes: np.ndarray      # (P, maxI) int32 — local ids of interface nodes
+
+    @property
+    def max_local(self) -> int:
+        return self.nw.shape[1]
+
+    @property
+    def max_ghost(self) -> int:
+        return self.ghost_global.shape[1]
+
+    @property
+    def max_iface(self) -> int:
+        return self.iface_nodes.shape[1]
+
+
+def shard_graph(g: GraphNP, P: int) -> ShardedGraph:
+    """Split ``g`` into P contiguous node-range shards with ghost and
+    interface maps."""
+    n = g.n
+    per = (n + P - 1) // P
+    range_start = np.minimum(np.arange(P, dtype=np.int64) * per, n)
+    range_end = np.minimum(range_start + per, n)
+
+    parts = []
+    for p in range(P):
+        a, b = int(range_start[p]), int(range_end[p])
+        n_p = b - a
+        lo, hi = int(g.indptr[a]), int(g.indptr[b])
+        dst = g.indices[lo:hi].astype(np.int64)
+        is_ghost = (dst < a) | (dst >= b)
+        ghosts = np.unique(dst[is_ghost])
+        # heads in local-ext space
+        heads = np.where(is_ghost, n_p + np.searchsorted(ghosts, dst), dst - a)
+        indptr_local = (g.indptr[a : b + 1] - lo).astype(np.int64)
+        # interface nodes: owned nodes with a ghost neighbour
+        owns_ghost = np.zeros(n_p, dtype=bool)
+        if hi > lo:
+            src_local = np.repeat(np.arange(n_p), np.diff(indptr_local))
+            owns_ghost[src_local[is_ghost]] = True
+        parts.append(dict(
+            a=a, n_p=n_p, m_p=hi - lo, indptr=indptr_local,
+            heads=heads.astype(np.int32), ew=g.ew[lo:hi], nw=g.nw[a:b],
+            ghosts=ghosts, iface=np.flatnonzero(owns_ghost).astype(np.int32),
+        ))
+
+    maxN = max(1, _round_up(max(d["n_p"] for d in parts), 8))
+    maxM = max(8, _round_up(max(d["m_p"] for d in parts), 8))
+    maxG = max(8, _round_up(max(d["ghosts"].shape[0] for d in parts), 8))
+    maxI = max(8, _round_up(max(d["iface"].shape[0] for d in parts), 8))
+
+    # slot of every owned node in its PE's interface buffer
+    iface_slot_of_global = np.full(n, -1, dtype=np.int64)
+    for d in parts:
+        iface_slot_of_global[d["a"] + d["iface"]] = np.arange(d["iface"].shape[0])
+
+    out = ShardedGraph(
+        P=P,
+        n=n,
+        range_start=range_start,
+        n_local=np.array([d["n_p"] for d in parts], np.int32),
+        n_ghost=np.array([d["ghosts"].shape[0] for d in parts], np.int32),
+        n_iface=np.array([d["iface"].shape[0] for d in parts], np.int32),
+        m_local=np.array([d["m_p"] for d in parts], np.int32),
+        indptr=np.zeros((P, maxN + 1), np.int64),
+        indices=np.zeros((P, maxM), np.int32),
+        ew=np.zeros((P, maxM), np.float32),
+        nw=np.zeros((P, maxN), np.float32),
+        ghost_global=np.full((P, maxG), -1, np.int64),
+        ghost_owner=np.zeros((P, maxG), np.int32),
+        ghost_slot=np.zeros((P, maxG), np.int32),
+        ghost_nw=np.zeros((P, maxG), np.float32),
+        iface_nodes=np.zeros((P, maxI), np.int32),
+    )
+    for p, d in enumerate(parts):
+        n_p, m_p, gs = d["n_p"], d["m_p"], d["ghosts"]
+        out.indptr[p, : n_p + 1] = d["indptr"]
+        out.indptr[p, n_p + 1 :] = d["indptr"][-1]
+        out.indices[p, :m_p] = d["heads"]
+        out.ew[p, :m_p] = d["ew"]
+        out.nw[p, :n_p] = d["nw"]
+        out.ghost_global[p, : gs.shape[0]] = gs
+        out.ghost_owner[p, : gs.shape[0]] = np.minimum(gs // per, P - 1)
+        out.ghost_slot[p, : gs.shape[0]] = iface_slot_of_global[gs]
+        out.ghost_nw[p, : gs.shape[0]] = g.nw[gs]
+        out.iface_nodes[p, : d["iface"].shape[0]] = d["iface"]
+    # every ghost must be an interface node of its owner
+    assert np.all(out.ghost_slot[out.ghost_global >= 0] >= 0)
+    return out

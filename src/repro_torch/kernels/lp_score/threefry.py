@@ -8,9 +8,14 @@ reference's moves bit for bit:
 
 * ``PRNGKey(s)`` is the pair ``(0, s)``;
 * ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``;
+* ``split(key)`` is the pair of keys ``threefry2x32(key, (0, i))``,
+  ``i = 0, 1``;
 * the 32 bits of flat element ``i`` are ``b1 ^ b2`` with
   ``(b1, b2) = threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))``;
-* the float is ``bitcast_f32((bits >> 9) | 0x3F800000) - 1``.
+* the float is ``bitcast_f32((bits >> 9) | 0x3F800000) - 1``, then
+  ``max(minval, u * (maxval - minval) + minval)`` in float32 with one
+  rounding of the multiply-add (XLA fuses it; the port computes it in
+  float64, where the product is exact).
 
 uint32 arithmetic runs on int64 tensors masked to 32 bits (torch on the CPU
 has no uint32 right shift).  Keys are pairs of python ints.
@@ -20,9 +25,10 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["fold_in", "prng_key", "random_bits", "threefry2x32", "uniform"]
+__all__ = ["fold_in", "prng_key", "random_bits", "split", "threefry2x32", "uniform"]
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -59,6 +65,11 @@ def fold_in(key: Key, data: int) -> Key:
     return threefry2x32(key, 0, int(data) & _M32)
 
 
+def split(key: Key) -> Tuple[Key, Key]:
+    """``jax.random.split(key)`` (two keys)."""
+    return threefry2x32(key, 0, 0), threefry2x32(key, 0, 1)
+
+
 def random_bits(key: Key, numel: int, device) -> torch.Tensor:
     """32 random bits per flat element (int64 tensor of uint32 values)."""
     i = torch.arange(numel, dtype=torch.int64, device=device)
@@ -66,10 +77,16 @@ def random_bits(key: Key, numel: int, device) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(key: Key, shape, device) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)`` in float32, in [0, 1)."""
+def uniform(key: Key, shape, device, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
     numel = 1
     for s in shape:
         numel *= int(s)
     bits = (random_bits(key, numel, device) >> 9) | 0x3F800000
-    return (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
+    u = (bits.to(torch.int32).view(torch.float32) - 1.0).reshape(shape)
+    if (minval, maxval) == (0.0, 1.0):
+        return u
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
+    return torch.clamp_min((u.double() * span + float(lo)).float(), float(lo))

@@ -1,0 +1,3 @@
+from .mesh import make_mesh
+
+__all__ = ["make_mesh"]

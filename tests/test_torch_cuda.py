@@ -1,7 +1,8 @@
 """repro_torch cases that need an NVIDIA GPU: each hand-written CUDA kernel
 against its plain PyTorch version on the card, and the dense round's, the
-batched GA's, the dynamic serving subsystem's and the DR stack's card paths
-against their CPU paths.  Marked ``cuda``; they skip without a device.
+batched GA's, the dynamic serving subsystem's, the DR stack's and the
+distributed path's card paths against their CPU paths.  Marked ``cuda``;
+they skip without a device.
 This file imports neither jax nor the reference package, so it runs on a
 GPU machine that has only PyTorch:
 
@@ -215,8 +216,33 @@ def test_dr_stack_card_matches_cpu(tmp_path):
     run's phase 7a, called here so that the check lives in one place."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    _smoke().check_dr_small(torch, str(tmp_path))
+
+
+@pytest.mark.cuda
+def test_dist_sweeps_card_match_cpu():
+    """The distributed clustering and refinement sweeps, the distributed
+    contraction and partition(engine="dist", dist_shards=8) with every PE
+    on the card give the CPU's labels and coarse graph: the smoke run's
+    phase 8a."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _smoke().check_dist_small(torch)
+
+
+@pytest.mark.cuda
+def test_sharded_ga_card_matches_unsharded():
+    """The batched GA with its islands split over ``["cuda"] * 2`` (and
+    ``* 4``) gives the unsharded GA's labels on the card: phase 8a."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _smoke().check_sharded_ga_small(torch)
+
+
+def _smoke():
+    """``chip_smoke.py`` as a module, so its checks live in one place."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    smoke.check_dr_small(torch, str(tmp_path))
+    return smoke

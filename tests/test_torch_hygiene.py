@@ -84,14 +84,21 @@ def test_entry_points_need_cuda_unless_told_otherwise():
 
 
 def test_unported_options_raise():
-    """The distributed engine is not ported and says so; the batched GA is
-    (evo_engine="device" runs it), and an unknown GA engine is an error."""
+    """Every engine of the reference is ported: an unknown engine or GA
+    engine is an error, the distributed engine needs a PE count and runs
+    with one, and evo_engine="device" runs the batched GA."""
     from repro_torch.core import PartitionerConfig, partition
     from repro_torch.graph import mesh2d
 
     g = mesh2d(8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
+        partition(g, PartitionerConfig(k=2, engine="tpu"), device="cpu")
+    with pytest.raises(ValueError):
         partition(g, PartitionerConfig(k=2, engine="dist"), device="cpu")
+    rep = partition(g, PartitionerConfig(k=2, engine="dist", dist_shards=2,
+                                         numpy_below=16, coarsest_factor=4),
+                    device="cpu", devices=["cpu"] * 2)
+    assert rep.feasible and rep.engine_stats["evo_calls"] == 0
     with pytest.raises(ValueError):
         partition(g, PartitionerConfig(k=2, evo_engine="gpu"), device="cpu")
     rep = partition(g, PartitionerConfig(k=2, evo_engine="device"), device="cpu")
