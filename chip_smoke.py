@@ -53,7 +53,17 @@ Phases, each of which fails the run:
    feasible, below the hash cut, with its shards' sizes, the times of its
    host planning, sweeps, per-PE programs, exchange and contraction (equal
    to the host's), the sharded GA's generation step at full width (equal
-   to the unsharded one) and the peak device memory.
+   to the unsharded one) and the peak device memory;
+9. memory accounting, the shape-bucket watchdog, capacity planning and SLO
+   export (``repro_torch.obs``): (a) phase 4's ``partition()`` with
+   accounting on, the tracer on and the watchdog strict: the same labels,
+   one ``lp_score_rows`` launch per dense round, the accountant's peak at
+   or below ``max_memory_allocated`` and every family within the closed
+   form's tolerance, the trace with its counter events; (b) a session on
+   the phase-4 graph under 6b's churn, the watchdog sealed after 2 warm
+   batches and 4 batches that open no new bucket; (c) ``will_fit`` on the
+   card's budget, a 1 GiB budget and rmat(27, 16)'s size; (d)
+   ``write_slo`` of (b)'s session.
 Then one JSON line with each kernel's numbers and, last, the device line.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -1751,6 +1761,221 @@ def check_dist_full(torch, g, phase4_cut: float, out_dir: Path) -> dict:
     return dict(rep=rep, wall=wall, phase_calls=ph.calls, exchanges=ex.calls)
 
 
+# --------------------------------------------------------------------------
+# phase 9: device-memory accounting, the shape-bucket watchdog, will_fit and
+# SLO export on the main path
+# --------------------------------------------------------------------------
+
+
+def _family_table(peaks: dict, est: dict, tol: float) -> list:
+    """(family, measured peak, estimate, relative error, held) per family;
+    families under 1 % of the measured total are not held (as in the
+    reference's test)."""
+    from repro_torch.obs import MEMORY_FAMILIES
+
+    total = sum(peaks.values())
+    rows = []
+    for f in MEMORY_FAMILIES:
+        meas, e = peaks.get(f, 0), est.get(f, 0)
+        held = max(meas, e) >= 0.01 * total
+        err = (e - meas) / meas if meas else float("inf") if e else 0.0
+        rows.append((f, meas, e, err, held))
+    rows.append(("total", total, est["total"], (est["total"] - total) / total, True))
+    for f, meas, e, err, held in rows:
+        print(f"    {f:15s} measured {meas / 2**30:9.4f} GiB  estimate {e / 2**30:9.4f} GiB  "
+              f"error {err:+.4f}" + ("" if held else "  (under 1 %, not held)"), flush=True)
+    return [r for r in rows if r[4] and not abs(r[3]) <= tol]
+
+
+def check_obs_partition(torch, g, phase4: dict, out_dir: Path) -> None:
+    """Phase 9a: phase 4's partition() with accounting on, the tracer on and
+    the watchdog strict: the labels must equal phase 4's bit for bit, the
+    run be feasible with one lp_score_rows launch per dense round, the
+    accountant's peak stay at or below the allocator's, and each family's
+    peak lie within the closed form's tolerance."""
+    import numpy as np
+    from repro_torch.core import PartitionerConfig, partition
+    from repro_torch.kernels.lp_score import lp_score_rows
+    from repro_torch.obs import (
+        MetricsRegistry, Tracer, accountant, estimate_footprint, set_accounting,
+        set_tracer, watchdog,
+    )
+    from repro_torch.obs.memory import FOOTPRINT_TOLERANCE
+
+    cfg = PartitionerConfig(k=16, preset="fast", refine_engine="dense",
+                            coarsest_factor=100, seed=0)
+    acct = accountant()
+    acct.reset()
+    set_accounting(True, MetricsRegistry("obs"))
+    tracer = Tracer()
+    set_tracer(tracer)
+    watchdog().set_strict(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    lp_score_rows.launches = 0
+    t = time.perf_counter()
+    rep = partition(g, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = lp_score_rows.launches
+    set_tracer(None)
+    set_accounting(False)
+    max_alloc = torch.cuda.max_memory_allocated()
+    snap = acct.snapshot()
+    peaks, peak_total = snap["peak_by_family"], snap["peak_total"]
+    print(f"9a partition() with accounting, tracing and a strict watchdog: {wall:.3f} s "
+          f"(phase 4: {phase4['wall']:.3f} s, {wall / phase4['wall']:.4f}x), cut {rep.cut}, "
+          f"feasible {rep.feasible}, lp_score_rows launches {launches}, dense_rounds "
+          f"{rep.engine_stats['dense_rounds']}, {acct.calls} account() calls", flush=True)
+    if not np.array_equal(rep.labels, phase4["rep"].labels):
+        _fail(f"9a: labels differ from phase 4's in "
+              f"{int((rep.labels != phase4['rep'].labels).sum())} nodes")
+    if not rep.feasible:
+        _fail(f"9a: infeasible partition (imbalance {rep.imbalance})")
+    if launches <= 0 or launches != rep.engine_stats["dense_rounds"]:
+        _fail(f"9a: {launches} lp_score_rows launches for "
+              f"{rep.engine_stats['dense_rounds']} dense rounds")
+    print("9a peak_by_family (GiB) " + json.dumps(
+        {f: round(b / 2**30, 4) for f, b in peaks.items()}), flush=True)
+    print(f"9a accountant peak_total {peak_total / 2**30:.4f} GiB, "
+          f"max_memory_allocated {max_alloc / 2**30:.4f} GiB ({before / 2**30:.4f} GiB "
+          f"allocated before the run), ratio {peak_total / max_alloc:.4f}", flush=True)
+    if peak_total > max_alloc:
+        _fail(f"9a: the accountant's peak {peak_total} exceeds max_memory_allocated "
+              f"{max_alloc}")
+    est = estimate_footprint(g.n, g.m, cfg.k, cfg)
+    print(f"9a estimate_footprint(n={g.n}, m={g.m}, k={cfg.k}) against the measured peaks "
+          f"(tolerance {FOOTPRINT_TOLERANCE}):", flush=True)
+    missed = _family_table(peaks, est, FOOTPRINT_TOLERANCE)
+    if missed:
+        _fail("9a: estimate_footprint misses the tolerance in " + ", ".join(
+            f"{f} ({err:+.4f})" for f, _, _, err, _ in missed))
+    counters = [ev for ev in tracer.events if ev["ph"] == "C"]
+    spans = [ev for ev in tracer.events if ev["ph"] == "X"]
+    if not counters or len(counters) != len(spans):
+        _fail(f"9a: {len(counters)} counter events for {len(spans)} spans")
+    peak_span = max(acct.span_marks, key=lambda m_: m_["total"])
+    print(f"9a largest span-close watermark: {peak_span['name']} "
+          f"(mode {peak_span.get('mode')}, n {peak_span.get('n')}) at "
+          f"{peak_span['total'] / 2**30:.4f} GiB", flush=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = tracer.export_chrome(str(out_dir / "chip_smoke_trace_obs.json"))
+    print(f"9a trace with {len(counters)} \"ph\": \"C\" counter events -> {path}",
+          flush=True)
+    acct.reset()
+
+
+def check_obs_session(torch, g, warm: int = 2, sealed: int = 4):
+    """Phase 9b: a session on the phase-4 graph under 6b's churn with
+    accounting on: ``warm`` batches, then ``watchdog().seal()`` and
+    ``sealed`` batches that must open no new bucket.  No escalation is
+    planned, so the seal stays on throughout.  Returns the session."""
+    import numpy as np
+    from repro_torch.core import PartitionerConfig
+    from repro_torch.dynamic import PartitionSession, SessionConfig
+    from repro_torch.obs import (
+        MEMORY_FAMILIES, accountant, estimate_footprint, set_accounting, watchdog,
+    )
+    from repro_torch.obs.memory import FOOTPRINT_TOLERANCE
+
+    k = 16
+    pcfg = PartitionerConfig(k=k, preset="fast", refine_engine="dense", coarsest_factor=100)
+    scfg = SessionConfig(k=k, seed=0, partition_cfg=pcfg)
+    acct = accountant()
+    acct.reset()
+    set_accounting(True)
+    wd = watchdog()
+    t = time.perf_counter()
+    sess = PartitionSession(g, scfg)
+    torch.cuda.synchronize()
+    print(f"9b session start: {time.perf_counter() - t:.3f} s", flush=True)
+    acct.reset_peaks()
+    batches = churn_batches(g, np.random.default_rng(11), g.m // 2 // 1000, lambda: sess.n)
+    try:
+        for i in range(warm + sealed):
+            if i == warm:
+                wd.seal()
+                print(f"9b watchdog sealed after {warm} warm batches at "
+                      f"{wd.bucket_count()} buckets", flush=True)
+            res = sess.update(next(batches)[0])
+            print(f"9b batch {i}{' (sealed)' if i >= warm else ''}: {res.seconds:.4f} s, "
+                  f"feasible {res.feasible}, escalated {res.escalated}, m {res.m}", flush=True)
+            if not res.feasible or res.escalated:
+                _fail(f"9b batch {i}: feasible {res.feasible}, escalated {res.escalated}")
+    finally:
+        wd.unseal()
+    torch.cuda.synchronize()
+    set_accounting(False)
+    snap = wd.snapshot()
+    print("9b watchdog " + json.dumps(
+        {**snap, "kernels": {f: d for f, d in snap["kernels"].items() if d["buckets"]}}),
+        flush=True)
+    peaks = acct.snapshot()["peak_by_family"]
+    est = estimate_footprint(g.n, g.m, k, scfg, workload="dynamic")
+    print(f"9b serving peaks against estimate_footprint(workload='dynamic') (tolerance "
+          f"{FOOTPRINT_TOLERANCE}, printed, not held):", flush=True)
+    _family_table({f: peaks[f] for f in MEMORY_FAMILIES}, est, FOOTPRINT_TOLERANCE)
+    acct.reset()
+    return sess
+
+
+def check_will_fit(torch, g, build_records) -> None:
+    """Phase 9c: the capacity check against the card's own budget, a 1 GiB
+    budget and rmat(27, 16)'s size, and the kernel builds' nvcc times."""
+    from repro_torch.core import LPEngine, PartitionerConfig
+
+    cfg = PartitionerConfig(k=16, preset="fast", refine_engine="dense",
+                            coarsest_factor=100, seed=0)
+    card = LPEngine.will_fit(g.n, g.m, 16, cfg)
+    small = LPEngine.will_fit(g.n, g.m, 16, cfg, budget_bytes=1 << 30)
+    n27, m27 = 1 << 27, 2 * 16 * (1 << 27)     # rmat(27, 16) before deduplication
+    big = LPEngine.will_fit(n27, m27, 16, cfg)
+    for tag, r, want in (("phase-4 graph, card budget", card, True),
+                         ("phase-4 graph, 1 GiB budget", small, False),
+                         (f"rmat(27, 16) n={n27} m={m27}, card budget", big, False)):
+        print(f"9c will_fit {tag}: required {r['required_bytes'] / 2**30:.4f} GiB of "
+              f"{r['budget_bytes'] / 2**30:.4f} GiB -> fits {r['fits']}", flush=True)
+        if r["fits"] is not want:
+            _fail(f"9c will_fit {tag}: fits {r['fits']}, want {want}")
+    if not build_records:
+        _fail("9c: phase 1 noted no kernel.build record")
+    for r in build_records:
+        print(f"9c kernel.build {r.key}: nvcc {r.wall_ms:.1f} ms", flush=True)
+
+
+def check_slo_export(sess, out_dir: Path) -> None:
+    """Phase 9d: ``write_slo`` of 9b's session into ``out_dir``."""
+    from repro_torch.obs import write_slo
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    paths = write_slo(str(out_dir / "chip_smoke_slo"), sess.stats(), [sess.metrics])
+    prom = Path(paths["prom"]).read_text()
+    if "repro_updates_applied" not in prom or "_bucket{le=" not in prom:
+        _fail(f"9d: {paths['prom']} lacks repro_updates_applied or histogram buckets")
+    print(f"9d write_slo -> {paths['prom']} ({len(prom.encode())} bytes), "
+          f"{paths['json']} ({Path(paths['json']).stat().st_size} bytes)", flush=True)
+
+
+def check_obs(torch, g, phase4: dict, out_dir: Path) -> None:
+    """Phase 9: the accounted, traced, sealed main path (9a, 9b), the
+    capacity check (9c) and SLO export (9d)."""
+    from repro_torch.obs import watchdog
+
+    wd = watchdog()
+    build_records = [r for r in wd.records if r.kernel == "kernel.build"]
+    wd.reset()      # 9a and 9b count their own buckets
+    try:
+        check_obs_partition(torch, g, phase4, out_dir)
+        sess = check_obs_session(torch, g)
+    finally:
+        wd.set_strict(False)
+    check_will_fit(torch, g, build_records)
+    check_slo_export(sess, out_dir)
+    del sess
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -1852,6 +2077,12 @@ def main(argv=None) -> int:
     check_sharded_ga_small(torch)
     check_dist_full(torch, g, rep.cut, Path(args.out))
     print(f"phase 8: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- phase 9: memory accounting, the watchdog, will_fit and SLO export
+    # on the main path (this slice's path)
+    t = time.perf_counter()
+    check_obs(torch, g, runs["auto"], Path(args.out))
+    print(f"phase 9: {time.perf_counter() - t:.1f} s", flush=True)
     kernels = [dict(
         name="lp_score_rows",
         route="cuda",

@@ -60,6 +60,8 @@ from ..kernels.lp_score.ops import dense_round_device
 from ..launch.mesh import pe_devices
 from ..obs import MetricsRegistry, RegistryBackedStats
 from ..obs import span as _obs_span
+from ..obs.memory import account as _mem_account
+from ..obs.watchdog import note_new
 from .contraction import CoarseMap, contract_device, packed_key_wbits
 from .evo_device import (
     EvoGraph,
@@ -133,6 +135,7 @@ class EngineStats(RegistryBackedStats):
     _SET_FIELDS = (
         "buckets",              # distinct (C, N, E, A, W) sweep shapes
         "contract_buckets",     # distinct (Nb, Mb, wbits)
+        "evo_buckets",          # distinct GA step shapes (the reference's keys)
         "repair_buckets",       # distinct repair shapes (the reference's keys)
         "audit_buckets",        # distinct audit shapes (the reference's keys)
     )
@@ -146,6 +149,10 @@ class EngineStats(RegistryBackedStats):
         return len(self.contract_buckets)
 
     @property
+    def evo_bucket_count(self) -> int:
+        return len(self.evo_buckets)
+
+    @property
     def repair_bucket_count(self) -> int:
         return len(self.repair_buckets)
 
@@ -155,7 +162,7 @@ class EngineStats(RegistryBackedStats):
 
     def note_audit_key(self, key) -> None:
         """Record one audit dispatch shape (the resilience auditor's)."""
-        self.audit_buckets.add(key)
+        note_new(self.audit_buckets, "engine.audit", key)
 
 
 def _upload(a: np.ndarray, dev: torch.device, dtype=None) -> torch.Tensor:
@@ -202,13 +209,31 @@ class LPEngine:
         self._indptrs: Dict[int, tuple] = {}  # (graph, device row ptrs) of a GraphNP
         self._repair_E = 0                  # sticky region-pack edge bucket
         self._iota_cache: Optional[torch.Tensor] = None
+        # shape keys noted to the watchdog (the reference's compile keys)
+        self._sweep_keys = set()
+        self._gather_keys = set()
+        self._dense_keys = set()
         self._exact_weights: Optional[bool] = None  # lazily scanned from g0
 
     @property
     def _iota(self) -> torch.Tensor:
         if self._iota_cache is None:
             self._iota_cache = torch.arange(self.A, dtype=torch.int64, device=self.device)
+            _mem_account("label_arenas", self._iota_cache)
         return self._iota_cache
+
+    @staticmethod
+    def will_fit(n: int, m: int, k: int, cfg=None, *, budget_bytes=None,
+                 workload: str = "partition", safety: float = 1.25,
+                 device=None) -> dict:
+        """Pre-upload capacity check: closed-form footprint of partitioning
+        (or serving) an (n, m, k) graph against the memory of ``device``
+        (CUDA unless named) — call before uploading anything (see
+        :func:`repro_torch.obs.memory.will_fit`)."""
+        from ..obs.memory import will_fit as _wf
+
+        return _wf(n, m, k, cfg, budget_bytes=budget_bytes,
+                   workload=workload, safety=safety, device=device)
 
     # ------------------------------------------------------------------ caches
 
@@ -242,6 +267,10 @@ class LPEngine:
                 ew=_upload(g.ew, self.device, torch.float32),
             )
             self.stats.h2d_bytes += self.A * 8 + g.m * 12
+        # a GraphDev's src/dst/ew are base_csr already: storage-keyed
+        # registration counts them once
+        _mem_account("label_arenas", ar.nw_arena, ar.cluster_w)
+        _mem_account("base_csr", ar.src, ar.dst, ar.ew)
         self._arenas[id(g)] = ar
         return ar
 
@@ -260,6 +289,8 @@ class LPEngine:
             ) as sp:
                 dp = self._pack_host_build(g, mode)
                 sp.sync_on(dp.edge_valid)
+        _mem_account("chunk_packs", dp.nodes, dp.node_valid, dp.edge_dst,
+                     dp.edge_w, dp.edge_src_slot, dp.edge_valid)
         self._packs[key] = dp
         return dp
 
@@ -324,6 +355,8 @@ class LPEngine:
         nodes_d = _upload(nodes, self.device, torch.int64)
         nv_d = _upload(node_valid, self.device)
         self.stats.h2d_bytes += nodes_d.numel() * 8 + node_valid.nbytes
+        note_new(self._gather_keys, "engine.gather",
+                 (nodes.shape, g.indptr.shape[0], g.indices.shape[0], Eb))
         with _obs_span(
             "vcycle.pack", cat="vcycle", chunks=int(C), edge_bucket=int(Eb)
         ) as sp:
@@ -359,6 +392,8 @@ class LPEngine:
                 rn_d = _upload(row_node, dev, torch.int64)
                 self.stats.h2d_bytes += Rb * 24
                 self.stats.gather_builds += 1
+                note_new(self._gather_keys, "engine.gather",
+                         ("ell", Rb, g.indices.shape[0]))
                 dst_d, w_d = gather_ell_device(
                     _upload(row_first, dev, torch.int64),
                     _upload(row_end, dev, torch.int64),
@@ -381,6 +416,7 @@ class LPEngine:
                 self.stats.h2d_bytes += dst_d.numel() * 12 + Rb * 8
             sp.sync_on(dst_d)
         de = _DeviceEll(graph=g, dst=dst_d, w=w_d, row_node=rn_d, nb=pow2(g.n + 1))
+        _mem_account("chunk_packs", de.dst, de.w, de.row_node)
         self._ells[id(g)] = de
         return de
 
@@ -402,10 +438,14 @@ class LPEngine:
         self._indptrs = {k: v for k, v in self._indptrs.items() if k in keep_ids}
 
     def carry_from(self, old: "LPEngine") -> None:
-        """Adopt a predecessor engine's stats object and sticky repair edge
-        bucket (the dynamic session's node-growth rebuild), so counters and
-        bucket sets stay cumulative across the swap."""
+        """Adopt a predecessor engine's stats object, watchdog key sets and
+        sticky repair edge bucket (the dynamic session's node-growth
+        rebuild), so counters and bucket sets stay cumulative across the
+        swap."""
         self.stats = old.stats
+        self._sweep_keys = old._sweep_keys
+        self._gather_keys = old._gather_keys
+        self._dense_keys = old._dense_keys
         self._repair_E = max(self._repair_E, old._repair_E)
 
     # ------------------------------------------------------------------ sweeps
@@ -413,7 +453,10 @@ class LPEngine:
     def _sweep(self, dp, labels, weights, nw_arena, restrict, U, seed, num_labels,
                *, iters, refine_mode, use_restrict, permute_chunks):
         self.stats.sweep_calls += 1
-        self.stats.buckets.add(dp.shape + (labels.shape[0], weights.shape[0]))
+        bucket = dp.shape + (labels.shape[0], weights.shape[0])
+        self.stats.buckets.add(bucket)
+        note_new(self._sweep_keys, "engine.sweep", bucket + (
+            restrict.shape[0], iters, refine_mode, use_restrict, permute_chunks))
         return lp_sweep(
             dp.nodes, dp.node_valid, dp.edge_dst, dp.edge_w, dp.edge_src_slot,
             dp.edge_valid,
@@ -510,6 +553,7 @@ class LPEngine:
         # bucket (slots >= n carry label k / weight 0 — inert)
         lab = self.to_arena(labels, g.n, fill=k)[: de.nb]
         nw_nb = ar.nw_arena[: de.nb]
+        note_new(self._dense_keys, "engine.dense", (tuple(de.dst.shape), de.nb, k))
         with _obs_span(
             "vcycle.sweep", cat="vcycle", mode="dense", n=int(g.n),
             iters=int(iters),
@@ -559,8 +603,12 @@ class LPEngine:
             return hit[1]
         t = _upload(g.indptr, self.device, torch.int64)
         self.stats.h2d_bytes += (g.n + 1) * 4
+        _mem_account("base_csr", t)
         self._indptrs[id(g)] = (g, t)
         return t
+
+    def _note_repair_key(self, key) -> None:
+        note_new(self.stats.repair_buckets, "engine.repair", key)
 
     def repair(
         self,
@@ -636,7 +684,7 @@ class LPEngine:
         # None and <= 0 both disable the cap
         cap = (0x7FFFFFFF if hop_degree_cap is None or hop_degree_cap <= 0
                else int(hop_degree_cap))
-        self.stats.repair_buckets.add(
+        self._note_repair_key(
             ("frontier", Tb, a_src.shape[0], ip.shape[0], self.A))
         with _obs_span("repair.expand", cat="repair",
                        touched=int(t_ids.size), hops=int(hops)):
@@ -671,7 +719,7 @@ class LPEngine:
         nodes_d = _upload(nodes, dev, torch.int64)
         nv_d = _upload(node_valid, dev)
         self.stats.h2d_bytes += nodes.size * 4 + node_valid.nbytes
-        self.stats.repair_buckets.add(
+        self._note_repair_key(
             ("gather", nodes.shape, ip.shape[0], a_dst.shape[0], Eb))
         with _obs_span("repair.gather", cat="repair",
                        region=int(region.size)) as sp:
@@ -684,6 +732,8 @@ class LPEngine:
             edge_w=edge_w, edge_src_slot=edge_slot, edge_valid=edge_valid,
             num_chunks=C, shape=(Cb, self.N, Eb),
         )
+        _mem_account("chunk_packs", nodes_d, nv_d, edge_dst, edge_w,
+                     edge_slot, edge_valid, mask)
         # ---- LP sweeps against exact global block weights ----
         bw = torch.zeros(k + 1, dtype=torch.float32, device=dev).index_add_(
             0, torch.clamp(lab, max=k).to(torch.int64), ar.nw_arena
@@ -692,7 +742,7 @@ class LPEngine:
         before_cut = cut_now(lab)
         w0 = bw.clone()
         w0[k] = float("inf")
-        self.stats.repair_buckets.add(("sweep", dp.shape, self.A, k + 1, iters))
+        self._note_repair_key(("sweep", dp.shape, self.A, k + 1, iters))
         with _obs_span("repair.sweep", cat="repair", iters=int(iters)) as sp:
             out, _, _ = self._sweep(
                 dp, lab, w0, ar.nw_arena,
@@ -705,7 +755,7 @@ class LPEngine:
         Kb = k + 1
         with _obs_span("repair.gain", cat="repair", rounds=int(gain_rounds)) as sp:
             for r in range(gain_rounds):
-                self.stats.repair_buckets.add(("gain", self.A, a_src.shape[0], Kb))
+                self._note_repair_key(("gain", self.A, a_src.shape[0], Kb))
                 out = gain_round_device(
                     a_src, a_dst, a_ew, ar.nw_arena, out, mask, n, k, U,
                     hash_base_u32(seed, r, TAG_DYN_GAIN),
@@ -713,7 +763,7 @@ class LPEngine:
                 )
             sp.sync_on(out)
         if balance_rounds:
-            self.stats.repair_buckets.add(("balance", self.A, Kb, balance_rounds))
+            self._note_repair_key(("balance", self.A, Kb, balance_rounds))
             with _obs_span("repair.balance", cat="repair",
                            rounds=int(balance_rounds)) as sp:
                 out = balance_rounds_device(
@@ -749,6 +799,7 @@ class LPEngine:
         deg[: g.n] = g.degrees()
         t = _upload(deg, self.device)
         self.stats.h2d_bytes += deg.nbytes
+        _mem_account("evo_population", t)
         self._degs[id(g)] = (g, t)
         return t
 
@@ -803,10 +854,13 @@ class LPEngine:
                 seed_mask[isl * P] = True
         self.stats.h2d_bytes += seed_lab.nbytes + seed_mask.nbytes
         self.stats.evo_calls += 1
+        note_new(self.stats.evo_buckets, "engine.evo",
+                 ("evo_seed", dp.shape, Sb, Ab, Kb, cfg.refine_iters))
         labs, keys = evo_seed_step(
             EG, _upload(seed_lab, self.device, torch.int64),
             _upload(seed_mask, self.device), I, P, grow_rounds_bound(n, k, g.m),
         )
+        _mem_account("evo_population", labs, keys)
         mesh = pe_devices(devices) if shard and G > 0 else ()
         if len(mesh) < 2 or I % len(mesh):
             mesh = (self.device,)
@@ -827,6 +881,12 @@ class LPEngine:
         S_loc, Sb_loc, Ib_loc = I_loc * P, pow2(I_loc * P), pow2(I_loc)
         Sb, Ab = labs.shape
         Gs = [EG.to(dev) for dev in mesh]   # no copy on the engine's device
+        # the reference's keys: its unsharded and shard_map steps differ
+        pshape = (*EG.pack[0].shape, EG.pack[2].shape[1])
+        gkey = (("evo_gen", pshape, Sb, Ab, Ib_loc, EG.Kb, cfg.refine_iters)
+                if D == 1 else
+                ("evo_gen_sharded", pshape, D, Sb_loc, Ab, Ib_loc, EG.Kb,
+                 cfg.refine_iters))
         if D == 1:
             lab_sh, key_sh = [labs], [keys]
         else:
@@ -839,10 +899,13 @@ class LPEngine:
                 kb[:S_loc] = keys[rows].to(dev)
                 lab_sh.append(lb)
                 key_sh.append(kb)
+            _mem_account("evo_population", *lab_sh, *key_sh)
         for gen in range(G):
             self.stats.evo_calls += 1
+            note_new(self.stats.evo_buckets, "engine.evo", gkey)
             lab_sh, key_sh = evo_generation_step_sharded(
                 Gs, lab_sh, key_sh, gen, I_loc, P, Ib_loc)
+            _mem_account("evo_population", *lab_sh, *key_sh)
         if D == 1:
             return lab_sh[0], key_sh[0]
         lab_out = torch.full((Sb, Ab), EG.k, dtype=labs.dtype, device=self.device)
@@ -891,6 +954,7 @@ class LPEngine:
         nw = ar.nw_arena[:Nb]
         integral = bool(np.all(g.ew == np.round(g.ew))) if g.m else True
         ew_max = float(g.ew.max()) if g.m else 0.0
+        _mem_account("base_csr", src, dst, ew)
         self._cin[id(g)] = (g, src, dst, ew, nw, integral, ew_max)
         return src, dst, ew, nw, integral, ew_max
 
@@ -914,7 +978,7 @@ class LPEngine:
         if lab.shape[0] != Nb:
             lab = torch.cat([lab[:n], lab.new_zeros(Nb - n)])
         self.stats.contract_calls += 1
-        self.stats.contract_buckets.add((Nb, Mb, wbits))
+        note_new(self.stats.contract_buckets, "engine.contract", (Nb, Mb, wbits))
         with _obs_span("vcycle.contract", cat="vcycle", n=int(n), m=int(m)):
             (C, n_c, nw_c, indptr_c, src_c, dst_c, ew_c, m_c, nwmax,
              ewmax) = contract_device(src, dst, ew, nw, lab, n, m, wbits=wbits)
@@ -937,6 +1001,7 @@ class LPEngine:
             on_materialize=self._note_d2h,
         )
         cmap = CoarseMap(dev=C, n_fine=n, n_coarse=n_c, on_materialize=self._note_d2h)
+        _mem_account("base_csr", C)
         return coarse, cmap
 
     def project_restrict(self, C: CoarseMap, restrict: torch.Tensor) -> torch.Tensor:
@@ -947,6 +1012,7 @@ class LPEngine:
         idx = torch.where(self._iota[:Nb] < C.n_fine, C.dev, self.A)
         out = torch.full((self.A + 1,), -1, dtype=torch.int32, device=self.device)
         out[idx] = restrict[:Nb].to(torch.int32)     # slot A is dropped
+        _mem_account("label_arenas", out)
         return out[: self.A]
 
     def _note_d2h(self, nbytes: int) -> None:
@@ -962,10 +1028,13 @@ class LPEngine:
             lab = labels.to(torch.int32)
             if lab.shape[0] == self.A:
                 return lab
-            return torch.cat([lab[:n], lab.new_full((self.A - n,), fill)])
-        out = np.full(self.A, fill, np.int32)
-        out[:n] = np.asarray(labels[:n], dtype=np.int32)
-        return _upload(out, self.device)
+            lab = torch.cat([lab[:n], lab.new_full((self.A - n,), fill)])
+        else:
+            out = np.full(self.A, fill, np.int32)
+            out[:n] = np.asarray(labels[:n], dtype=np.int32)
+            lab = _upload(out, self.device)
+        _mem_account("label_arenas", lab)
+        return lab
 
     def project(
         self,
@@ -983,11 +1052,14 @@ class LPEngine:
         if isinstance(C, CoarseMap):
             Nb = C.dev.shape[0]
             fine = torch.where(self._iota[:Nb] < C.n_fine, base[C.dev], fill)
-            return torch.cat([fine, fine.new_full((self.A - Nb,), fill)])
-        n_f = C.shape[0]
-        fine = base[_upload(C, self.device, torch.int64)]
-        self.stats.h2d_bytes += n_f * 4
-        return torch.cat([fine, fine.new_full((self.A - n_f,), fill)])
+            out = torch.cat([fine, fine.new_full((self.A - Nb,), fill)])
+        else:
+            n_f = C.shape[0]
+            fine = base[_upload(C, self.device, torch.int64)]
+            self.stats.h2d_bytes += n_f * 4
+            out = torch.cat([fine, fine.new_full((self.A - n_f,), fill)])
+        _mem_account("label_arenas", out)
+        return out
 
     def cut(self, g: AnyGraph, labels: torch.Tensor) -> float:
         """Edge cut of arena labels, evaluated on the device (one sync)."""
@@ -1006,6 +1078,20 @@ class LPEngine:
 
     # ---------------------------------------------------------------- metrics
 
+    @property
+    def compile_count(self) -> int:
+        """Distinct sweep shapes dispatched (the reference's ``_lp_sweep``
+        compile keys: bucket and statics).  Eager torch compiles nothing
+        per shape; the count is the number of launch geometries the sweep
+        has used, and equals the reference's ``sweep_compiles``."""
+        return len(self._sweep_keys)
+
+    @staticmethod
+    def jit_cache_size() -> Optional[int]:
+        """``None``: the port keeps no jit cache (the reference returns
+        ``None`` too when its cache size is unavailable)."""
+        return None
+
     def stats_dict(self) -> dict:
         return dict(
             sweep_calls=self.stats.sweep_calls,
@@ -1015,6 +1101,7 @@ class LPEngine:
             dense_rounds=self.stats.dense_rounds,
             contract_calls=self.stats.contract_calls,
             evo_calls=self.stats.evo_calls,
+            evo_bucket_count=self.stats.evo_bucket_count,
             contract_bucket_count=self.stats.contract_bucket_count,
             gather_builds=self.stats.gather_builds,
             repair_calls=self.stats.repair_calls,

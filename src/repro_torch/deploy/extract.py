@@ -47,6 +47,8 @@ from ..device import resolve_device
 from ..graph.csr import GraphDev, GraphNP, arc_bucket, pow2, to_device_csr
 from ..graph.packing import gather_pack_device
 from ..obs import RegistryBackedStats
+from ..obs.memory import account as _mem_account
+from ..obs.watchdog import note_new
 
 __all__ = [
     "BlockShard",
@@ -366,7 +368,9 @@ class BlockExtractor:
         out = np.full(Nb, k, np.int32)
         out[: gd.n] = np.asarray(labels[: gd.n], dtype=np.int32)
         self._note_h2d(out.nbytes)
-        return torch.from_numpy(out).to(gd.nw.device)
+        t = torch.from_numpy(out).to(gd.nw.device)
+        _mem_account("label_arenas", t)
+        return t
 
     # --------------------------------------------------------------- public
 
@@ -384,7 +388,7 @@ class BlockExtractor:
         Nb = gd.nw.shape[0]
         Mb = gd.indices.shape[0]
         self.stats.mask_calls += 1
-        self.stats.deploy_buckets.add(("mask", Nb, Mb))
+        note_new(self.stats.deploy_buckets, "deploy.extract", ("mask", Nb, Mb))
         hop, counts = _shard_masks(
             lab, gd.src, gd.indices, gd.indptr, block, gd.n, halo
         )
@@ -397,11 +401,16 @@ class BlockExtractor:
         Eb = min(max(self._e_sticky, arc_bucket(m_local)), arc_bucket(Mb))
         self._o_sticky, self._g_sticky, self._e_sticky = Ob, Gb, Eb
         self.stats.extract_calls += 1
-        self.stats.deploy_buckets.add(("extract", Nb, Mb, Ob, Gb, Eb))
+        note_new(self.stats.deploy_buckets, "deploy.extract",
+                 ("extract", Nb, Mb, Ob, Gb, Eb))
         (own_g, ghost_g, ghost_hop, ghost_block, nw_own, ghost_nw,
          indptr_loc, heads, ew_loc) = _shard_extract(
             hop, lab, gd.indptr, gd.indices, gd.ew, gd.nw, gd.n, halo,
             n_own, n_ghost, n_rows, Ob=Ob, Gb=Gb, Eb=Eb,
+        )
+        _mem_account(
+            "block_shards", own_g, ghost_g, ghost_hop, ghost_block,
+            nw_own, ghost_nw, indptr_loc, heads, ew_loc,
         )
         return BlockShard(
             block=block, halo=halo, n_own=n_own, n_ghost=n_ghost,

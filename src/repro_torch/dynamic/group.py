@@ -38,6 +38,7 @@ from ..graph.csr import pow2
 from ..graph.packing import gather_pack_device, plan_region_pack
 from ..obs import RegistryBackedStats
 from ..obs import span as _obs_span
+from ..obs.watchdog import note_new
 from .repair import (
     TAG_DYN_GAIN,
     TAG_DYN_GAIN_GATE,
@@ -169,7 +170,9 @@ class SessionGroup:
         dev = self.device
         T = len(members)
         Kb = k + 1
-        note = self.stats.group_buckets.add
+        def note(key):
+            note_new(self.stats.group_buckets, "group.repair", key)
+
         # ---- per-lane host planning (mirrors LPEngine.repair) ----
         seeds, caps, ns, Us, t_list, ars = [], [], [], [], [], []
         for name, sess, g, net_u, net_v in members:

@@ -43,6 +43,7 @@ from ..device import resolve_device
 from ..graph.csr import GraphNP
 from ..obs import MetricsRegistry
 from ..obs import span as _obs_span
+from ..obs.memory import account as _mem_account
 from .store import DynamicGraphStore, GraphUpdate
 
 __all__ = ["PartitionSession", "SessionConfig", "UpdateResult"]
@@ -318,6 +319,7 @@ class PartitionSession:
         lab = self.labels.clone()
         lab[torch.from_numpy(ids).to(self.device)] = torch.from_numpy(asg).to(self.device)
         self.labels = lab
+        _mem_account("label_arenas", self.labels)
         self.engine.stats.h2d_bytes += ids.size * 12
 
     def _maybe_rebuild_engine(self) -> None:

@@ -40,6 +40,8 @@ from ..device import resolve_device
 from ..graph.csr import GraphDev, GraphNP, arc_bucket, pow2, to_device_csr
 from ..obs import MetricsRegistry, RegistryBackedStats
 from ..obs import span as _obs_span
+from ..obs.memory import account as _mem_account
+from ..obs.watchdog import note_new
 
 __all__ = [
     "DynamicGraphStore",
@@ -652,10 +654,12 @@ class DynamicGraphStore:
             nw = np.zeros(Nb, np.float32)
             nw[: self.n] = self._nw
             self._nw_dev = torch.from_numpy(nw).to(self.device)
+            _mem_account("base_csr", self._nw_dev)
             self._on_h2d(nw.nbytes)
         ou, ov, ow = self._upload_overlay(Rb)
+        _mem_account("overlay_chunks", ou, ov, ow)
         Mb = self.base.indices.shape[0]
-        self.stats.compact_buckets.add((Mb, Rb, Nb))
+        note_new(self.stats.compact_buckets, "store.compact", (Mb, Rb, Nb))
         # no sync_on: a deferred merge must stay asynchronous under tracing
         # too, so the span covers the launches, not the card's completion
         with _obs_span(
@@ -665,6 +669,7 @@ class DynamicGraphStore:
                 self.base.src, self.base.indices, self.base.ew,
                 ou, ov, ow, self._nw_dev, self.n, self.base.m, r,
             )
+            _mem_account("base_csr", *res[:4])  # in-flight merge outputs
         self._pending = dict(
             res=res, r=r, nchunks=len(self._ou), n=self.n,
             nw_dev=self._nw_dev,
@@ -776,8 +781,9 @@ class DynamicGraphStore:
         Rb = pow2(max(r, 8))
         Mb = self.base.indices.shape[0]
         Nb = self.base.indptr.shape[0] - 1
-        self.stats.view_buckets.add((Mb, Rb, Nb))
+        note_new(self.stats.view_buckets, "store.view", (Mb, Rb, Nb))
         ou, ov, ow = self._upload_overlay(Rb)
+        _mem_account("overlay_chunks", ou, ov, ow)
         with _obs_span(
             "store.view", cat="store", overlay=int(r), m=int(self.base.m)
         ) as sp:
@@ -786,6 +792,7 @@ class DynamicGraphStore:
                 self.base.ew, ou, ov, ow, self.n, self.base.m, r,
             )
             sp.sync_on(out[0])
+        _mem_account("overlay_chunks", *out[:4])
         return out
 
     def graph(self) -> GraphDev:
@@ -862,20 +869,21 @@ class DynamicGraphStore:
         n_new = int(keep_h.sum())
         Mb = self.base.indices.shape[0]
         Nb = self.base.indptr.shape[0] - 1
-        self.stats.vacuum_buckets.add((Mb, Nb))
+        note_new(self.stats.vacuum_buckets, "store.vacuum", (Mb, Nb))
         newid = np.zeros(Nb, np.int64)
         newid[:n_old] = np.maximum(newid_h, 0)
         keep = np.zeros(Nb, bool)
         keep[:n_old] = keep_h
         self._on_h2d(Nb * 5)
+        newid_d = torch.from_numpy(newid).to(self.device)
+        keep_d = torch.from_numpy(keep).to(self.device)
+        _mem_account("base_csr", newid_d, keep_d)
         with _obs_span(
             "store.vacuum", cat="store", removed=int(n_old - n_new)
         ) as sp:
             indptr_r, src_r, dst_r, ew_r, nw_r = vacuum_device(
                 self.base.src, self.base.indices, self.base.ew,
-                torch.from_numpy(newid).to(self.device),
-                torch.from_numpy(keep).to(self.device),
-                self.base.nw, self.base.m,
+                newid_d, keep_d, self.base.nw, self.base.m,
             )
             sp.sync_on(nw_r)
         self._nw = self._nw[keep_h]

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.memory import account as _mem_account
 
 __all__ = [
     "GraphDev",
@@ -116,6 +117,10 @@ class GraphDev:
         self.on_materialize = on_materialize
         self._indptr_host: Optional[np.ndarray] = None
         self._host: Optional[GraphNP] = None
+        # every base-CSR level flows through this constructor (upload,
+        # contraction output, store merge/vacuum): the one accounting
+        # chokepoint of the base_csr family, to_device_csr's included
+        _mem_account("base_csr", indptr, indices, ew, nw, src)
 
     @property
     def n(self) -> int:

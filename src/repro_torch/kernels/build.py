@@ -6,7 +6,9 @@ headers, so ``nvcc`` takes seconds).  It is compiled for Hopper
 name that carries a hash of the source and flags, so an edited source is
 rebuilt and an unchanged one is loaded from the cache.  The compiler's
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
-the library as ``<name>.log``.
+the library as ``<name>.log``.  Every build notes the shape-bucket
+watchdog (family ``"kernel.build"``, key ``(stem, digest)``) with the
+measured ``nvcc`` wall time, or 0 for a cache hit.
 
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -18,8 +20,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict
+
+from ..obs.watchdog import watchdog as _obs_watchdog
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load"]
 
@@ -56,14 +61,18 @@ def build(source: Path) -> Path:
         source.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}-{digest}.so"
+    key = (source.stem, digest)
     if out.exists():
+        _obs_watchdog().note("kernel.build", key)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
         capture_output=True, text=True,
     )
+    wall_ms = (time.perf_counter() - t0) * 1e3
     (BUILD_DIR / f"{source.stem}.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -72,6 +81,7 @@ def build(source: Path) -> Path:
             f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)
+    _obs_watchdog().note("kernel.build", key, wall_ms=wall_ms)
     return out
 
 

@@ -22,6 +22,12 @@ Span names: ``vcycle.pack`` (chunk or ELL pack, host or device gather),
 ``vcycle.project``, ``vcycle.host`` (levels run by the numpy engine),
 ``vcycle.evolve`` (the coarsest-level GA) and ``vcycle.finish`` (the final
 balance repair and cut of each V-cycle).
+
+With memory accounting on (:func:`repro_torch.obs.memory.set_accounting`),
+every span close, after its device sync, is also a watermark
+(``accountant().note_span``) and appends a ``"ph": "C"`` counter event of
+the family bytes, so the trace shows them as counter tracks under the
+spans that allocated them.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ import time
 from typing import List, Optional
 
 import torch
+
+from .memory import accountant as _mem_accountant
 
 __all__ = ["Tracer", "Span", "span", "get_tracer", "set_tracer"]
 
@@ -114,8 +122,19 @@ class Tracer:
         )
         if sp.args:
             ev["args"] = sp.args
+        # memory accounting: every span close is a watermark boundary and
+        # a counter-track sample in the same trace
+        acct = _mem_accountant()
+        mem_ev = None
+        if acct.enabled:
+            acct.note_span(sp.name, sp.args)
+            mem_ev = acct.counter_event(
+                ts=(t1 - self._origin) * 1e6, pid=ev["pid"]
+            )
         with self._lock:
             self.events.append(ev)
+            if mem_ev is not None:
+                self.events.append(mem_ev)
 
     def clear(self) -> None:
         with self._lock:

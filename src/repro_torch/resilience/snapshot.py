@@ -28,6 +28,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..obs import span as _obs_span
+from ..obs.memory import pin as _mem_pin
 
 __all__ = ["SessionSnapshot", "SnapshotManager", "host_digest"]
 
@@ -117,6 +118,15 @@ class SnapshotManager:
                 state=self.session.snapshot_state(),
             )
         snap.seconds = time.time() - t0
+        # snapshot_refs are pins, not owned allocations: the tensors belong
+        # to other families (labels arena, base CSR), so retention keeps
+        # device memory alive without allocating more of it
+        st = snap.state
+        base = st["store"]["base"]
+        _mem_pin(
+            "snapshot_refs", st["labels"], st["store"]["nw_dev"],
+            base.indptr, base.indices, base.ew, base.nw, base.src,
+        )
         self._next_version += 1
         self._snaps.append(snap)
         if len(self._snaps) > self.keep:

@@ -246,3 +246,35 @@ def _smoke():
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     return smoke
+
+
+@pytest.mark.cuda
+def test_accounting_on_card_stays_within_allocator_and_will_fit_reads_card():
+    """A small partition() on the card with accounting on: the accountant's
+    live and peak bytes stay at or below what the caching allocator holds,
+    and will_fit reads the card's own memory as its budget."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import PartitionerConfig, partition
+    from repro_torch.obs import accountant, set_accounting, will_fit
+
+    g = barabasi_albert(8192, 6, seed=3)
+    cfg = PartitionerConfig(k=4, refine_engine="dense", coarsest_factor=100, seed=0)
+    a = accountant()
+    a.reset()
+    set_accounting(True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rep = partition(g, cfg)
+        torch.cuda.synchronize()
+        snap = a.snapshot()
+        assert rep.feasible and snap["peak_total"] > 0
+        assert snap["peak_total"] <= torch.cuda.max_memory_allocated()
+        assert snap["total"] <= torch.cuda.memory_allocated()
+    finally:
+        set_accounting(False)
+        a.reset()
+    res = will_fit(g.n, g.m, 4, cfg)
+    assert res["budget_bytes"] == torch.cuda.mem_get_info()[1]
+    assert res["fits"] is True
