@@ -64,6 +64,19 @@ Phases, each of which fails the run:
    batches and 4 batches that open no new bucket; (c) ``will_fit`` on the
    card's budget, a 1 GiB budget and rmat(27, 16)'s size; (d)
    ``write_slo`` of (b)'s session.
+10. the paper's quality comparison (``repro_torch.core.baselines``): (a)
+   on the reference benchmark's five Table II graphs at k=2, our
+   ``partition()`` on the card equals the CPU's labels, is feasible and
+   cuts below ``hash_partition``, beside ``matching_multilevel`` (the
+   ParMetis stand-in) and each one's first-contraction shrink; (b)
+   ``matching_multilevel`` at k=16 on ``rmat(17, 16)`` without isolated
+   nodes (``--matching-scale``; 19 is the phase-4 graph) beside our
+   ``partition()`` in phase 4's configuration, with its ``lp_score_rows``
+   launches, and the hash partition; (c) the chunked ``lp_refine`` the
+   baseline runs at levels of 200,000 nodes or more, on mesh2d(512): card
+   == CPU;
+   (d) four example twins (``examples/torch``) exit 0 on the card.  The
+   matching runs are host numpy, in worker processes beside the card work.
 Then one JSON line with each kernel's numbers and, last, the device line.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -415,7 +428,7 @@ def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
     """Phase 4: the port's main path end to end with the given GA engine;
     the kernel's launch count is set to 0 just before and read just
     after."""
-    from repro_torch.core import PartitionerConfig, partition
+    from repro_torch.core import PartitionerConfig, hash_partition, partition
     from repro_torch.core.metrics import cut_np
     from repro_torch.kernels.lp_score import lp_score_rows
     from repro_torch.obs import Tracer, set_tracer
@@ -433,8 +446,7 @@ def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
     set_tracer(None)
 
     k = cfg.k
-    hash_lab = ((torch.arange(g.n, dtype=torch.int64) * 2654435761) % (1 << 32) % k).numpy()
-    hash_cut = cut_np(g, hash_lab)
+    hash_cut = cut_np(g, hash_partition(g.n, k))
     tag = f"[evo_engine={evo_engine}]"
     print(f"{tag} partition: {wall:.3f} s wall ({rep.seconds:.3f} s in partition), "
           f"cut {rep.cut} ({rep.cut / hash_cut:.4f} of hash cut {hash_cut}), "
@@ -1623,7 +1635,7 @@ def check_dist_full(torch, g, phase4_cut: float, out_dir: Path) -> dict:
     import numpy as np
     import repro_torch.core.distributed_lp as TD
     import repro_torch.core.engine as TE
-    from repro_torch.core import LPEngine, contract, partition
+    from repro_torch.core import LPEngine, contract, hash_partition, partition
     from repro_torch.core.evolutionary import EvoConfig
     from repro_torch.core.metrics import cut_np, lmax
     from repro_torch.kernels.lp_score import lp_score_rows
@@ -1634,8 +1646,7 @@ def check_dist_full(torch, g, phase4_cut: float, out_dir: Path) -> dict:
     k = 16
     cfg = _dist_cfg(k=k, coarsest_factor=100)
     L = lmax(float(g.nw.sum()), k, cfg.eps)
-    hash_lab = (np.arange(g.n, dtype=np.int64) * 2654435761 % (1 << 32) % k)
-    hash_cut = cut_np(g, hash_lab)
+    hash_cut = cut_np(g, hash_partition(g.n, k))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     lp_score_rows.launches = 0
@@ -1922,17 +1933,20 @@ def check_obs_session(torch, g, warm: int = 2, sealed: int = 4):
 
 def check_will_fit(torch, g, build_records) -> None:
     """Phase 9c: the capacity check against the card's own budget, a 1 GiB
-    budget and rmat(27, 16)'s size, and the kernel builds' nvcc times."""
+    budget (half the requirement where that is less, as on the small graphs
+    of ``--scale``) and rmat(27, 16)'s size, and the kernel builds' nvcc
+    times."""
     from repro_torch.core import LPEngine, PartitionerConfig
 
     cfg = PartitionerConfig(k=16, preset="fast", refine_engine="dense",
                             coarsest_factor=100, seed=0)
     card = LPEngine.will_fit(g.n, g.m, 16, cfg)
-    small = LPEngine.will_fit(g.n, g.m, 16, cfg, budget_bytes=1 << 30)
+    small = LPEngine.will_fit(g.n, g.m, 16, cfg,
+                              budget_bytes=min(1 << 30, card["required_bytes"] // 2))
     n27, m27 = 1 << 27, 2 * 16 * (1 << 27)     # rmat(27, 16) before deduplication
     big = LPEngine.will_fit(n27, m27, 16, cfg)
     for tag, r, want in (("phase-4 graph, card budget", card, True),
-                         ("phase-4 graph, 1 GiB budget", small, False),
+                         ("phase-4 graph, small budget", small, False),
                          (f"rmat(27, 16) n={n27} m={m27}, card budget", big, False)):
         print(f"9c will_fit {tag}: required {r['required_bytes'] / 2**30:.4f} GiB of "
               f"{r['budget_bytes'] / 2**30:.4f} GiB -> fits {r['fits']}", flush=True)
@@ -1976,10 +1990,247 @@ def check_obs(torch, g, phase4: dict, out_dir: Path) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------------------
+# phase 10: the paper's quality comparison — our partitioner against the
+# matching multilevel (the ParMetis stand-in) and the hash partition
+# --------------------------------------------------------------------------
+
+#: the reference benchmark's Table II graphs (``benchmarks/run.py``
+#: ``_graphs_quality``): name, type (S social/web, M mesh), generator call
+QUALITY_GRAPHS = (
+    ("ba-social", "S", "barabasi_albert", (16384, 6), dict(seed=3)),
+    ("pp-community", "S", "planted_partition", (16384, 16),
+     dict(p_in=0.01, p_out=0.0002, seed=4)),
+    ("rmat-web", "S", "rmat", (13, 8), dict(seed=2)),
+    ("rgg14", "M", "rgg", (14,), dict(seed=1)),
+    ("mesh64", "M", "mesh2d", (64,), {}),
+)
+TWINS = ("quickstart", "cluster_modularity", "autoshard_moe", "partition_web")
+
+
+def _quality_graph(i: int):
+    import repro_torch.graph as G
+
+    _, _, fn, a, kw = QUALITY_GRAPHS[i]
+    return getattr(G, fn)(*a, **kw)
+
+
+def _worker_init(src: str) -> None:
+    sys.path.insert(0, src)
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _matching_job(job) -> dict:
+    """One ``matching_multilevel(g, k, seed=0)`` in a worker process (host
+    numpy; the device branch, if a level reaches it, runs on the card):
+    ``job`` is ``("quality", i, k)`` for Table II graph i or ``("csr",
+    indptr, indices, ew, nw, k)``."""
+    from repro_torch.core import matching_multilevel
+    from repro_torch.graph import GraphNP
+
+    if job[0] == "quality":
+        g, k = _quality_graph(job[1]), job[2]
+    else:
+        g, k = GraphNP(*job[1:5]), job[5]
+    rep = matching_multilevel(g, k, seed=0)
+    return dict(labels=rep.labels, cut=rep.cut, imbalance=rep.imbalance,
+                level_sizes=rep.level_sizes, shrink_first=rep.shrink_first,
+                coarsening_stalled=rep.coarsening_stalled, seconds=rep.seconds)
+
+
+def check_quality_table(torch, futs) -> None:
+    """Phase 10a: at k=2 on each Table II graph, our partition() on the card
+    (the reference benchmark's config, seed 0) must equal the CPU's labels,
+    be feasible and cut below ``hash_partition``; the matching baseline
+    (from ``futs``, running in worker processes) is recorded beside it."""
+    import numpy as np
+    from repro_torch.core import PartitionerConfig, hash_partition, partition
+    from repro_torch.core.metrics import cut_np
+    from repro_torch.kernels.lp_score import lp_score_rows
+
+    t0 = time.perf_counter()
+    k = 2
+    print("10a graph,type,n,m,ours_cut,ours_t_s,hem_cut,hem_t_s,hash_cut,"
+          "impr_vs_hem_pct,ours_shrink,hem_shrink,hem_stalled,ours_imbalance,"
+          "hem_imbalance", flush=True)
+    s_impr = []
+    for i, (name, typ, *_) in enumerate(QUALITY_GRAPHS):
+        g = _quality_graph(i)
+        cfg = PartitionerConfig(k=k, preset="fast", coarsest_factor=50,
+                                f_mesh=64 if typ == "M" else 14.0, seed=0)
+        torch.cuda.synchronize()
+        lp_score_rows.launches = 0
+        t = time.perf_counter()
+        rep = partition(g, cfg)
+        torch.cuda.synchronize()
+        ours_t = time.perf_counter() - t
+        launches = lp_score_rows.launches
+        cpu = partition(g, cfg, device="cpu")
+        if not np.array_equal(rep.labels, cpu.labels):
+            _fail(f"10a {name}: card labels differ from the CPU's in "
+                  f"{int((rep.labels != cpu.labels).sum())} nodes")
+        hash_cut = cut_np(g, hash_partition(g.n, k))
+        mb = futs[i].get()
+        impr = 100.0 * (mb["cut"] - rep.cut) / max(mb["cut"], 1)
+        if typ == "S":
+            s_impr.append(impr)
+        print(f"10a {name},{typ},{g.n},{g.m // 2},{rep.cut:.0f},{ours_t:.3f},"
+              f"{mb['cut']:.0f},{mb['seconds']:.3f},{hash_cut:.0f},{impr:.1f},"
+              f"{rep.shrink_first:.3f},{mb['shrink_first']:.3f},"
+              f"{mb['coarsening_stalled']},{rep.imbalance:.4f},"
+              f"{mb['imbalance']:.4f}", flush=True)
+        ml = mb["level_sizes"]
+        print(f"10a {name}: card == cpu; ours level_sizes {rep.level_sizes}, "
+              f"lp_score_rows launches {launches} (chunked refinement); matching "
+              f"{len(ml)} levels {ml[:2]} ... {ml[-1]}", flush=True)
+        if not rep.feasible:
+            _fail(f"10a {name}: infeasible, imbalance {rep.imbalance}")
+        if not rep.cut < hash_cut:
+            _fail(f"10a {name}: cut {rep.cut} not below the hash cut {hash_cut}")
+    print(f"10a social/web improvement over matching: {np.mean(s_impr):.1f}% on "
+          f"average (per graph {[round(x, 1) for x in s_impr]}); 10a: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_matching_full(torch, g, fut, t_submit: float) -> None:
+    """Phase 10b: ``matching_multilevel(g, 16, seed=0)`` (run in a worker
+    process since phase 10 began) beside our ``partition()`` in phase 4's
+    configuration on the card, its ``lp_score_rows`` launches counted from
+    zero, and ``hash_partition``.  Ours must be feasible, below the hash
+    cut and launch the kernel once per dense round."""
+    from repro_torch.core import PartitionerConfig, hash_partition, partition
+    from repro_torch.core.metrics import cut_np, imbalance_np, is_feasible
+    from repro_torch.kernels.lp_score import lp_score_rows
+
+    k = 16
+    cfg = PartitionerConfig(k=k, preset="fast", refine_engine="dense",
+                            coarsest_factor=100, seed=0)
+    torch.cuda.synchronize()
+    lp_score_rows.launches = 0
+    t = time.perf_counter()
+    rep = partition(g, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = lp_score_rows.launches
+    hash_lab = hash_partition(g.n, k)
+    hash_cut = cut_np(g, hash_lab)
+    print(f"10b k={k} on n={g.n}, m={g.m}: ours (phase 4's config) cut {rep.cut} "
+          f"({rep.cut / hash_cut:.4f} of hash), imbalance {rep.imbalance:.5f}, "
+          f"{wall:.3f} s, shrink_first {rep.shrink_first:.4f}, lp_score_rows "
+          f"launches {launches} for {rep.engine_stats['dense_rounds']} dense rounds",
+          flush=True)
+    print(f"10b ours level_sizes {rep.level_sizes}", flush=True)
+    t = time.perf_counter()
+    mb = fut.get()
+    waited = time.perf_counter() - t
+    print(f"10b matching cut {mb['cut']} ({mb['cut'] / hash_cut:.4f} of hash, "
+          f"{mb['cut'] / rep.cut:.4f} of ours), imbalance {mb['imbalance']:.5f}, "
+          f"feasible {is_feasible(g, mb['labels'], k, 0.03)}, "
+          f"{mb['seconds']:.3f} s (host numpy in a worker), shrink_first "
+          f"{mb['shrink_first']:.4f}, coarsening_stalled {mb['coarsening_stalled']}",
+          flush=True)
+    print(f"10b matching level_sizes {mb['level_sizes']}", flush=True)
+    print(f"10b hash cut {hash_cut}, imbalance "
+          f"{imbalance_np(g, hash_lab, k):.5f}; 10b: waited {waited:.1f} s, "
+          f"{time.perf_counter() - t_submit:.1f} s since its submit", flush=True)
+    if not rep.feasible or not rep.cut < hash_cut:
+        _fail(f"10b: ours infeasible or not below the hash cut {hash_cut}: {rep.cut}")
+    if launches <= 0 or launches != rep.engine_stats["dense_rounds"]:
+        _fail(f"10b: {launches} lp_score_rows launches for "
+              f"{rep.engine_stats['dense_rounds']} dense rounds")
+
+
+def check_baseline_device_branch(torch) -> None:
+    """Phase 10c: the call ``matching_multilevel`` makes at levels of
+    200,000 nodes or more — the chunked ``lp_refine`` of a hash partition —
+    on mesh2d(512): card labels == CPU labels."""
+    import numpy as np
+    from repro_torch.core import hash_partition, lp_refine
+    from repro_torch.core.metrics import cut_np, lmax
+    from repro_torch.graph import mesh2d
+
+    t0 = time.perf_counter()
+    g = mesh2d(512)
+    k = 2
+    lab0 = hash_partition(g.n, k)
+    L = lmax(g.total_node_weight, k, 0.03)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    card = lp_refine(g, lab0, k=k, U=L, iters=6, seed=0)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu = lp_refine(g, lab0, k=k, U=L, iters=6, seed=0, device="cpu")
+    cpu_s = time.perf_counter() - t
+    if not np.array_equal(card.labels, cpu.labels) or card.moves != cpu.moves:
+        _fail(f"10c: card labels differ from the CPU's in "
+              f"{int((card.labels != cpu.labels).sum())} nodes")
+    print(f"10c lp_refine(hash_partition) mesh2d(512) n={g.n} m={g.m} k={k}, 6 "
+          f"iters: card {card_s:.3f} s, cpu {cpu_s:.3f} s, cut {cut_np(g, lab0)} -> "
+          f"{cut_np(g, card.labels)}, {card.moves} moves: card == cpu; 10c: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_twins(timeout: float = 240.0) -> None:
+    """Phase 10d: four example twins with ``--device cuda``, run side by
+    side in subprocesses: each must exit 0."""
+    import os
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    try:
+        for name in TWINS:
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py"),
+                 "--device", "cuda"],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                env=env, cwd=ROOT)
+        for name, p in procs.items():
+            out, err = p.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            if p.returncode != 0:
+                _fail(f"10d {name}: exit {p.returncode}\n{err[-2000:]}")
+            lines = out.strip().splitlines()
+            print(f"10d {name}: exit 0 at {time.perf_counter() - t0:.1f} s; last "
+                  f"line: {lines[-1] if lines else ''}", flush=True)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    print(f"10d: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_quality(torch, g) -> None:
+    """Phase 10: the matching baselines run host numpy in worker processes
+    (spawned, one thread each) while the card runs 10a's partitions, 10c,
+    10d and 10b's partition of ``g``; 10b's matching, the longest, is
+    submitted first.  Leaving the pool terminates its workers, also when a
+    check fails."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(1 + len(QUALITY_GRAPHS), initializer=_worker_init,
+                  initargs=(str(ROOT / "src"),)) as pool:
+        t_b = time.perf_counter()
+        fut_b = pool.apply_async(_matching_job,
+                                 (("csr", g.indptr, g.indices, g.ew, g.nw, 16),))
+        futs_a = [pool.apply_async(_matching_job, (("quality", i, 2),))
+                  for i in range(len(QUALITY_GRAPHS))]
+        check_quality_table(torch, futs_a)
+        check_baseline_device_branch(torch)
+        check_twins()
+        check_matching_full(torch, g, fut_b, t_b)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=19)
     ap.add_argument("--edge-factor", type=int, default=16)
+    ap.add_argument("--matching-scale", type=int, default=17,
+                    help="rmat scale of phase 10b (at most --scale)")
     ap.add_argument("--out", default=str(ROOT / "chiprun_out"))
     args = ap.parse_args(argv)
 
@@ -2083,6 +2334,17 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     check_obs(torch, g, runs["auto"], Path(args.out))
     print(f"phase 9: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- phase 10: the paper's quality comparison (this slice's path):
+    # the Table II graphs, the matching baseline against our partition in
+    # phase 4's config (on rmat(17, 16): at full width the host matching
+    # alone took 160.6 and 172.8 s on the host of an NVIDIA H100 80GB HBM3,
+    # 700.00 W machine), its device branch, and the example twins on the card
+    t = time.perf_counter()
+    g10 = g if args.matching_scale >= args.scale else make_graph(
+        args.matching_scale, args.edge_factor)
+    check_quality(torch, g10)
+    print(f"phase 10: {time.perf_counter() - t:.1f} s", flush=True)
     kernels = [dict(
         name="lp_score_rows",
         route="cuda",

@@ -1,6 +1,6 @@
 """Initial partitioning helpers for the coarsest graph (numpy copy of
-``repro.core.initial_partition``): greedy graph growing and the final
-feasibility repair.
+``repro.core.initial_partition``): greedy graph growing, the final
+feasibility repair, one refined individual and the pick of the best.
 """
 
 from __future__ import annotations
@@ -8,9 +8,11 @@ from __future__ import annotations
 import numpy as np
 
 from ..graph.csr import GraphNP
-from .metrics import block_weights_np
+from .fm import fm_refine
+from .label_propagation import sclap_numpy
+from .metrics import block_weights_np, cut_np
 
-__all__ = ["greedy_growing", "repair_balance"]
+__all__ = ["greedy_growing", "repair_balance", "initial_partition", "best_of"]
 
 
 def greedy_growing(g: GraphNP, k: int, Lmax: float, seed: int = 0) -> np.ndarray:
@@ -105,3 +107,27 @@ def repair_balance(
         if bw.max() <= Lmax:
             break
     return labels.astype(np.int32)
+
+
+def initial_partition(
+    g: GraphNP,
+    k: int,
+    Lmax: float,
+    seed: int = 0,
+    refine_iters: int = 6,
+) -> np.ndarray:
+    """One greedy-growing individual + SCLaP + FM refinement."""
+    labels = greedy_growing(g, k, Lmax, seed=seed)
+    labels = sclap_numpy(
+        g, labels, U=Lmax, iters=refine_iters, seed=seed, refine_mode=True, num_labels=k
+    ).labels
+    labels = fm_refine(g, labels, k, Lmax, seed=seed)
+    return repair_balance(g, labels, k, Lmax, seed=seed)
+
+
+def best_of(g: GraphNP, cands: list[np.ndarray], k: int, Lmax: float) -> np.ndarray:
+    """Pick the feasible candidate with the smallest cut (fallback: min cut)."""
+    feasible = [c for c in cands if block_weights_np(g, c, k).max() <= Lmax + 1e-6]
+    pool = feasible if feasible else cands
+    cuts = [cut_np(g, c) for c in pool]
+    return pool[int(np.argmin(cuts))]

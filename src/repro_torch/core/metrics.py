@@ -1,4 +1,5 @@
-"""Partition quality metrics: edge cut and balance (host numpy and torch)."""
+"""Partition quality metrics: edge cut, balance, quotient graph and
+communication volume (host numpy and torch)."""
 
 from __future__ import annotations
 
@@ -13,7 +14,10 @@ __all__ = [
     "block_weights_dense",
     "block_weights_np",
     "imbalance_np",
+    "is_feasible",
     "lmax",
+    "quotient_graph_np",
+    "comm_volume_np",
 ]
 
 
@@ -60,3 +64,28 @@ def imbalance_np(g: GraphNP, labels: np.ndarray, k: int) -> float:
     bw = block_weights_np(g, labels, k)
     return float(bw.max() * k / max(g.total_node_weight, 1e-12) - 1.0)
 
+
+def is_feasible(g: GraphNP, labels: np.ndarray, k: int, eps: float) -> bool:
+    bw = block_weights_np(g, labels, k)
+    return bool(bw.max() <= lmax(g.total_node_weight, k, eps) + 1e-6)
+
+
+def quotient_graph_np(g: GraphNP, labels: np.ndarray, k: int):
+    """Weighted quotient graph: (k,k) dense inter-block weight matrix + block weights."""
+    src = g.arc_sources()
+    dst = g.indices
+    q = np.zeros((k, k), dtype=np.float64)
+    np.add.at(q, (labels[src], labels[dst]), g.ew)
+    np.fill_diagonal(q, 0.0)
+    return q / 2.0, block_weights_np(g, labels, k)
+
+
+def comm_volume_np(g: GraphNP, labels: np.ndarray, k: int) -> float:
+    """Total communication volume: sum over v of #distinct foreign blocks adjacent."""
+    src = g.arc_sources().astype(np.int64)
+    dst_lbl = labels[g.indices].astype(np.int64)
+    key = src * np.int64(k + 1) + dst_lbl
+    uniq = np.unique(key)
+    usrc = uniq // (k + 1)
+    ulbl = uniq % (k + 1)
+    return float((ulbl != labels[usrc]).sum())

@@ -8,7 +8,7 @@ from .csr import (
     to_device_csr,
     validate,
 )
-from .generators import barabasi_albert, mesh2d, planted_partition, ring, rmat, star
+from .generators import barabasi_albert, mesh2d, planted_partition, rgg, ring, rmat, star
 from .packing import (
     ChunkPack,
     EllPack,
@@ -29,7 +29,7 @@ from .packing import (
 __all__ = [
     "GraphDev", "GraphNP", "arc_bucket", "from_edges", "from_reference",
     "pow2", "to_device_csr", "validate",
-    "barabasi_albert", "mesh2d", "planted_partition", "ring", "rmat", "star",
+    "barabasi_albert", "mesh2d", "planted_partition", "rgg", "ring", "rmat", "star",
     "ChunkPack", "EllPack", "chunk_geometry", "ell_pack", "gather_ell_device",
     "gather_pack_device", "layout_nodes", "pack_chunks", "pad_pack",
     "plan_chunks", "plan_ell_rows", "plan_region_pack",

@@ -3,6 +3,8 @@
 Each generator draws from ``np.random.default_rng(seed)`` in the same order
 as the reference, so it returns byte-identical arrays for the same seed:
 
+* :func:`rgg` — the paper's rggX family: 2^X random points in the unit
+  square, joined within radius ``0.55 * sqrt(ln n / n)``;
 * :func:`mesh2d` — triangulated regular grid (Delaunay-family stand-in);
 * :func:`rmat` — Kronecker/R-MAT graph (web-graph stand-in);
 * :func:`barabasi_albert` — preferential attachment (social networks);
@@ -17,6 +19,7 @@ import numpy as np
 from .csr import GraphNP, from_edges
 
 __all__ = [
+    "rgg",
     "mesh2d",
     "rmat",
     "barabasi_albert",
@@ -24,6 +27,63 @@ __all__ = [
     "ring",
     "star",
 ]
+
+
+def rgg(scale: int, seed: int = 0) -> GraphNP:
+    """Random geometric graph with ``n = 2**scale`` nodes (paper's rggX).
+
+    Uses a cell grid of side ``r`` so each point only compares against the 9
+    neighbouring cells; this is the standard O(n) expected-time construction.
+    """
+    rng = np.random.default_rng(seed)
+    n = 1 << scale
+    pts = rng.random((n, 2))
+    r = 0.55 * np.sqrt(np.log(n) / n)
+    ncell = max(1, int(1.0 / r))
+    cell = (pts[:, 0] * ncell).astype(np.int64) * ncell + (
+        pts[:, 1] * ncell
+    ).astype(np.int64)
+    order = np.argsort(cell, kind="stable")
+    cell_sorted = cell[order]
+    # start offset of every occupied cell
+    uniq, starts = np.unique(cell_sorted, return_index=True)
+    starts = np.append(starts, n)
+    cell_to_slot = {int(c): i for i, c in enumerate(uniq)}
+
+    us, vs = [], []
+    r2 = r * r
+    # For each occupied cell, compare its points with points in the
+    # 5 "forward" neighbour cells (self, E, SW, S, SE) — each unordered pair
+    # of cells is visited once.
+    offsets = [(0, 0), (0, 1), (1, -1), (1, 0), (1, 1)]
+    for slot in range(uniq.shape[0]):
+        c = int(uniq[slot])
+        cx, cy = divmod(c, ncell)
+        a = order[starts[slot] : starts[slot + 1]]
+        pa = pts[a]
+        for dx, dy in offsets:
+            nx, ny = cx + dx, cy + dy
+            if not (0 <= nx < ncell and 0 <= ny < ncell):
+                continue
+            nb = nx * ncell + ny
+            s2 = cell_to_slot.get(nb)
+            if s2 is None:
+                continue
+            b = order[starts[s2] : starts[s2 + 1]]
+            pb = pts[b]
+            d2 = ((pa[:, None, :] - pb[None, :, :]) ** 2).sum(-1)
+            if dx == 0 and dy == 0:
+                iu, iv = np.triu_indices(a.shape[0], k=1)
+                hit = d2[iu, iv] <= r2
+                us.append(a[iu[hit]])
+                vs.append(a[iv[hit]])
+            else:
+                iu, iv = np.nonzero(d2 <= r2)
+                us.append(a[iu])
+                vs.append(b[iv])
+    u = np.concatenate(us) if us else np.empty(0, np.int64)
+    v = np.concatenate(vs) if vs else np.empty(0, np.int64)
+    return from_edges(n, u, v)
 
 
 def mesh2d(side: int) -> GraphNP:

@@ -48,7 +48,12 @@ __all__ = [
     "ell_pack",
     "ShardedGraph",
     "shard_graph",
+    "ELL_WIDTH",
 ]
+
+#: Slots per row of the dense path's ELL pack, and the multiple that
+#: ``pad_k`` rounds a block count up to: the reference's lane width (128).
+ELL_WIDTH = 128
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -317,7 +322,7 @@ class EllPack:
 
 
 def plan_ell_rows(
-    indptr: np.ndarray, n: int, width: int = 128, tile_rows: int = 256
+    indptr: np.ndarray, n: int, width: int = ELL_WIDTH, tile_rows: int = 256
 ):
     """Host half of a *device* ELL pack: the per-row ``(row_node, row_first,
     row_end)`` adjacency offsets, mirroring :func:`ell_pack`'s row split."""
@@ -348,7 +353,7 @@ def gather_ell_device(
     ew: torch.Tensor,          # (Mb,) float32
     n: int,
     *,
-    width: int = 128,
+    width: int = ELL_WIDTH,
 ):
     """Device edge fill for an ELL row plan: ``dst``/``w`` equal to
     :func:`ell_pack` on the materialized graph."""
@@ -362,7 +367,7 @@ def gather_ell_device(
     return dst, w
 
 
-def ell_pack(g: GraphNP, width: int = 128, tile_rows: int = 256) -> EllPack:
+def ell_pack(g: GraphNP, width: int = ELL_WIDTH, tile_rows: int = 256) -> EllPack:
     n = g.n
     deg = g.degrees().astype(np.int64)
     nrows = np.maximum(1, (deg + width - 1) // width)

@@ -5,6 +5,7 @@ from .ops import (
     dense_round_device_batched,
     lp_refine_dense_round,
     node_scores,
+    pad_k,
 )
 from .ref import lp_score_rows_ref, node_scores_ref
 
@@ -17,4 +18,5 @@ __all__ = [
     "dense_round_device",
     "dense_round_device_batched",
     "dense_eligibility",
+    "pad_k",
 ]

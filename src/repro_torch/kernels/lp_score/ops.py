@@ -21,7 +21,7 @@ import torch
 
 from ...device import resolve_device
 from ...graph.csr import GraphNP
-from ...graph.packing import EllPack, ell_pack
+from ...graph.packing import ELL_WIDTH, EllPack, ell_pack
 from . import threefry
 from .lp_score import lp_score_rows
 
@@ -31,7 +31,13 @@ __all__ = [
     "dense_round_device",
     "dense_round_device_batched",
     "dense_eligibility",
+    "pad_k",
 ]
+
+
+def pad_k(k: int) -> int:
+    """``k`` rounded up to a multiple of the lane width (at least one lane)."""
+    return max(ELL_WIDTH, ((k + ELL_WIDTH - 1) // ELL_WIDTH) * ELL_WIDTH)
 
 
 def _row_scores(ell_dst, ell_w, row_node, lab_pad, n: int, *, k: int):
@@ -70,7 +76,7 @@ def node_scores(
     gather and segment sum)."""
     dev = resolve_device(device)
     if ell is None:
-        ell = ell_pack(g, width=128)
+        ell = ell_pack(g, width=ELL_WIDTH)
     dst, w, row_node = _ell_tensors(ell, dev)
     lab_pad = torch.from_numpy(
         np.concatenate([np.asarray(labels, np.int32), np.array([k], np.int32)])
@@ -188,7 +194,7 @@ def lp_refine_dense_round(
     wrapper around :func:`dense_round_device`)."""
     dev = resolve_device(device)
     if ell is None:
-        ell = ell_pack(g, width=128)
+        ell = ell_pack(g, width=ELL_WIDTH)
     lab_pad = np.concatenate([np.asarray(labels, np.int32), np.array([k], np.int32)])
     nw_pad = np.concatenate([g.nw.astype(np.float32), np.zeros(1, np.float32)])
     new = dense_round_device(

@@ -1,8 +1,8 @@
 """repro_torch cases that need an NVIDIA GPU: each hand-written CUDA kernel
 against its plain PyTorch version on the card, and the dense round's, the
-batched GA's, the dynamic serving subsystem's, the DR stack's and the
-distributed path's card paths against their CPU paths.  Marked ``cuda``;
-they skip without a device.
+batched GA's, the dynamic serving subsystem's, the DR stack's, the
+distributed path's and the matching baseline's card paths against their
+CPU paths.  Marked ``cuda``; they skip without a device.
 This file imports neither jax nor the reference package, so it runs on a
 GPU machine that has only PyTorch:
 
@@ -278,3 +278,27 @@ def test_accounting_on_card_stays_within_allocator_and_will_fit_reads_card():
     res = will_fit(g.n, g.m, 4, cfg)
     assert res["budget_bytes"] == torch.cuda.mem_get_info()[1]
     assert res["fits"] is True
+
+
+@pytest.mark.cuda
+def test_matching_multilevel_card_matches_cpu(monkeypatch):
+    """The matching baseline on the card gives the CPU's labels: as it runs
+    (small levels refine on the host), and with every level sent through
+    its device branch (the chunked ``lp_refine`` of levels >= 200,000
+    nodes, lowered to 0 here)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import repro_torch.core.baselines as B
+
+    g = rmat(11, 8, seed=1)
+    for k in (2, 4):
+        card = B.matching_multilevel(g, k, seed=0)
+        cpu = B.matching_multilevel(g, k, seed=0, device="cpu")
+        np.testing.assert_array_equal(card.labels, cpu.labels)
+        assert card.cut == cpu.cut and card.level_sizes == cpu.level_sizes
+    g = barabasi_albert(4096, 6, seed=2)
+    monkeypatch.setattr(B, "DEVICE_REFINE_MIN_N", 0)
+    card = B.matching_multilevel(g, 4, seed=0)
+    cpu = B.matching_multilevel(g, 4, seed=0, device="cpu")
+    assert len(card.level_sizes) > 1
+    np.testing.assert_array_equal(card.labels, cpu.labels)

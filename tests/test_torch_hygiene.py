@@ -1,6 +1,7 @@
-"""Port hygiene: repro_torch imports neither jax nor the reference package,
-imports cleanly with jax unavailable, and its entry points never fall back
-to the CPU on their own."""
+"""Port hygiene: repro_torch and its example twins (``examples/torch``)
+import neither jax nor the reference package, the package imports cleanly
+with jax unavailable, and its entry points never fall back to the CPU on
+their own."""
 
 import ast
 import os
@@ -16,6 +17,7 @@ torch.set_num_threads(1)
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 PKG = SRC / "repro_torch"
+EXAMPLES = SRC.parent / "examples" / "torch"
 
 
 def _imported_roots(path: Path):
@@ -31,8 +33,11 @@ def _imported_roots(path: Path):
 def test_no_jax_or_reference_imports():
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 31
+    twins = sorted(EXAMPLES.glob("*.py"))
+    assert len(twins) >= 9
+    files += twins
     bad = [
-        f"{f.relative_to(SRC)}:{line} imports {root}"
+        f"{f.relative_to(SRC.parent)}:{line} imports {root}"
         for f in files
         for root, line in _imported_roots(f)
         if root in ("jax", "jaxlib", "repro")

@@ -46,7 +46,6 @@ def main(argv=None) -> int:
     ap.add_argument("--edge-factor", type=int, default=16)
     args = ap.parse_args(argv)
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -56,12 +55,12 @@ def main(argv=None) -> int:
     sys.path.insert(1, str(ROOT))
     import repro_torch.core.distributed_lp as TD
     from chip_smoke import _card_line, _dist_cfg, make_graph
-    from repro_torch.core import partition
+    from repro_torch.core import hash_partition, partition
     from repro_torch.core.metrics import cut_np
 
     k = 16
     g = make_graph(args.scale, args.edge_factor)
-    hash_cut = cut_np(g, np.arange(g.n, dtype=np.int64) * 2654435761 % (1 << 32) % k)
+    hash_cut = cut_np(g, hash_partition(g.n, k))
     runs = {}
     parity_read = TD._labels_ext
     for name, read in (("reference_read", parity_read), ("owned_read", owned_ghost_read)):
