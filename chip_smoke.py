@@ -76,7 +76,19 @@ Phases, each of which fails the run:
    baseline runs at levels of 200,000 nodes or more, on mesh2d(512): card
    == CPU;
    (d) four example twins (``examples/torch``) exit 0 on the card.  The
-   matching runs are host numpy, in worker processes beside the card work.
+   matching runs are host numpy, in worker processes beside the card work;
+11. LM serving (``repro_torch.models``, ``repro_torch.launch.serve``): (a)
+   every architecture at smoke width in float32, the same weights on the
+   card and the CPU: prefill's logits and caches, four greedy decode steps
+   (tokens equal) and ``loss_fn``; (b) qwen2.5-3b at full width in bf16
+   through ``launch.serve.main`` (batch 8, prompt 512, 64 tokens), then the
+   same seed's model for the numbers (prefill and decode times, tok/s,
+   weight bytes, peak memory, the decode step's HBM bound), the first decode
+   step against forward over S + 1 tokens in bf16 and in float32, end to end
+   and layer by layer, one decode step under ``torch.profiler`` and the
+   decode attention beside ``scaled_dot_product_attention``; (c) the same
+   for granite-moe-1b-a400m and mamba2-2.7b (batch 4, prompt 256, 32
+   tokens) without the profiler; (d) the ``serve_lm`` twin on the card.
 Then one JSON line with each kernel's numbers and, last, the device line.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -2173,34 +2185,42 @@ def check_baseline_device_branch(torch) -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def check_twins(timeout: float = 240.0) -> None:
-    """Phase 10d: four example twins with ``--device cuda``, run side by
-    side in subprocesses: each must exit 0."""
+def _start_twins(names):
+    """Start example twins with ``--device cuda``, side by side, each in
+    its own process."""
     import os
 
-    t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    procs = {}
+    return {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py"), "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for name in names}
+
+
+def _wait_twins(procs, tag: str, t0: float, timeout: float = 240.0) -> None:
+    """Each started twin must exit 0 within ``timeout`` of ``t0``; every one
+    still running when this returns or fails is killed."""
     try:
-        for name in TWINS:
-            procs[name] = subprocess.Popen(
-                [sys.executable, str(ROOT / "examples" / "torch" / f"{name}.py"),
-                 "--device", "cuda"],
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                env=env, cwd=ROOT)
         for name, p in procs.items():
             out, err = p.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
             if p.returncode != 0:
-                _fail(f"10d {name}: exit {p.returncode}\n{err[-2000:]}")
+                _fail(f"{tag} {name}: exit {p.returncode}\n{err[-2000:]}")
             lines = out.strip().splitlines()
-            print(f"10d {name}: exit 0 at {time.perf_counter() - t0:.1f} s; last "
+            print(f"{tag} {name}: exit 0 at {time.perf_counter() - t0:.1f} s; last "
                   f"line: {lines[-1] if lines else ''}", flush=True)
     finally:
         for p in procs.values():
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    print(f"10d: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"{tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def check_twins() -> None:
+    """Phase 10d: four example twins on the card, side by side: each must
+    exit 0."""
+    t0 = time.perf_counter()
+    _wait_twins(_start_twins(TWINS), "10d", t0)
 
 
 def check_quality(torch, g) -> None:
@@ -2223,6 +2243,370 @@ def check_quality(torch, g) -> None:
         check_baseline_device_branch(torch)
         check_twins()
         check_matching_full(torch, g, fut_b, t_b)
+
+
+# --------------------------------------------------------------------------
+# phase 11: LM serving (repro_torch.models, repro_torch.launch.serve)
+# --------------------------------------------------------------------------
+
+#: 11a, card against CPU in float32 at smoke width: the CPU parity tests'
+#: tolerance against the reference
+LM_F32_TOL = dict(rtol=1e-4, atol=1e-3)
+#: 11b/11c at full width: the first decode step's logits against forward
+#: over the S + 1 tokens at the last position, as ||d|| / ||forward||, in
+#: bf16 and on the same weights in float32, end to end and layer by layer
+#: (PERF.md section 6 says how each limit was chosen)
+DECODE_VS_FORWARD_REL = 0.05
+DECODE_VS_FORWARD_REL_F32 = 1e-3
+#: the full-width serving runs: (arch, batch, prompt, generated tokens,
+#: profile one decode step, hold the end-to-end gaps).  mamba2's end-to-end
+#: gaps are recorded, not held: its 64 random-weight SSD layers amplify
+#: rounding, in the reference as in the port (tools/decode_gap.py: bf16
+#: 0.6077, float32 0.0046 on the card); every layer's own gap is held
+LM_FULL = (("qwen2.5-3b", 8, 512, 64, True, True),
+           ("granite-moe-1b-a400m", 4, 256, 32, False, True),
+           ("mamba2-2.7b", 4, 256, 32, False, False))
+
+
+def _lm_diff(torch, tag: str, got, want, tol=LM_F32_TOL) -> float:
+    """Max |got - want|; fails the run unless they agree within ``tol``."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if got.shape != want.shape:
+        _fail(f"{tag}: shapes {tuple(got.shape)} != {tuple(want.shape)}")
+    d = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, **tol):
+        _fail(f"{tag}: card != cpu, max |diff| {d}")
+    return d
+
+
+def check_lm_smoke(torch) -> None:
+    """Phase 11a: every architecture at smoke width in float32, the same
+    weights on the card and the CPU: prefill's last logits and caches, four
+    greedy decode steps' logits and tokens, and loss_fn's value.  Tokens
+    must be equal, the rest within ``LM_F32_TOL``; TF32 must be off."""
+    import copy
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.models import decode_step, init_params, loss_fn, prefill
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        _fail("11a: float32 matmuls may use TF32")
+    t0 = time.perf_counter()
+    B, S, steps = 2, 24, 4
+    for arch in ARCHS:
+        cfg = ARCHS[arch].smoke()
+        gen = torch.Generator().manual_seed(0)
+        cpu = init_params(cfg, gen, "cpu")
+        tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen)
+        pe = (torch.randn((B, cfg.n_prefix, cfg.d_model), generator=gen)
+              if cfg.n_prefix else None)
+        cur = S + cfg.n_prefix
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = cpu if dev == "cpu" else copy.deepcopy(cpu).to(dev)
+            t = tokens.to(dev)
+            e = None if pe is None else pe.to(dev)
+            batch = {"tokens": t} if e is None else {"tokens": t, "prefix_embeds": e}
+            with torch.no_grad():
+                loss, _ = loss_fn(cfg, model, batch)
+            last, caches = prefill(cfg, model, t, prefix_embeds=e)
+            # decode writes K/V in place: keep prefill's caches apart
+            at_prefill = [{k: v.clone() for k, v in c.items()} for c in caches]
+            caches = pad_caches(cfg, caches, cur, cur + steps + 1)
+            tok = last.argmax(-1)
+            logits, toks = [last], [tok]
+            for i in range(steps):
+                lg, caches = decode_step(cfg, model, tok, caches, cur + i)
+                tok = lg.argmax(-1)
+                logits.append(lg)
+                toks.append(tok)
+            runs[dev] = (loss, at_prefill, logits, torch.stack(toks, 1).cpu())
+        (l0, c0, g0, k0), (l1, c1, g1, k1) = runs["cpu"], runs["cuda"]
+        if not torch.equal(k0, k1):
+            _fail(f"11a {arch}: greedy tokens differ: cpu {k0.tolist()} card {k1.tolist()}")
+        e_log = max(_lm_diff(torch, f"11a {arch} logits {i}", b, a)
+                    for i, (a, b) in enumerate(zip(g0, g1)))
+        e_c = max(_lm_diff(torch, f"11a {arch} cache {l}.{k}", c1[l][k], c0[l][k])
+                  for l in range(len(c0)) for k in c0[l])
+        e_l = _lm_diff(torch, f"11a {arch} loss", l1, l0)
+        print(f"11a {arch}: prefill, {steps} greedy decode steps, loss_fn: card == cpu "
+              f"(max |diff| logits {e_log:.3g}, caches {e_c:.3g}, loss {e_l:.3g}; "
+              f"tokens equal)", flush=True)
+    print(f"11a: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _decode_bytes(cfg, model, caches, B: int, n_valid: int) -> int:
+    """Bytes one decode step must move at ``n_valid`` filled cache slots:
+    every parameter once, except an untied embedding table, of which it
+    reads B rows; each attention cache's filled K/V slots read and one slot
+    written; each Mamba state and conv window read and written."""
+    n = sum(p.numel() * p.element_size() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        e = model.embed
+        n -= e.numel() * e.element_size() - B * e.shape[1] * e.element_size()
+    for c in caches:
+        if "k" in c:
+            k = c["k"]
+            slots = min(n_valid, k.shape[1]) + 1
+            n += 2 * slots * k[:, 0].numel() * k.element_size()
+        else:
+            n += 2 * sum(t.numel() * t.element_size() for t in c.values())
+    return n
+
+
+def _profile_step(torch, cfg, model, tok, caches, pos: int, step_ms: float) -> dict:
+    """One decode step under torch.profiler: the kernels' device time by
+    name, and the card's idle share against the profiled step's wall time
+    and against the unprofiled step time ``step_ms``.  Only device events
+    count: a CPU op's self device time repeats its kernels' time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        decode_step(cfg, model, tok, caches, pos)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy <= 0:
+        print("11b profiler: no device time recorded", flush=True)
+        return dict(busy_us=None)
+    print(f"11b profiler, one decode step at pos {pos}: {len(rows)} kernels' names, "
+          f"{sum(r[1] for r in rows)} launches, device busy {busy:.1f} us of a "
+          f"{wall_us:.1f} us profiled step", flush=True)
+    print(f"11b   {'self device us':>14s} {'share':>6s} {'calls':>5s}  kernel", flush=True)
+    for us, n, key in rows[:12]:
+        print(f"11b   {us:14.1f} {us / busy:6.1%} {n:5d}  {key[:90]}", flush=True)
+    return dict(busy_us=round(busy, 1), launches=sum(r[1] for r in rows),
+                profiled_wall_us=round(wall_us, 1),
+                idle_share_profiled=round(1 - busy / wall_us, 4),
+                idle_share=round(1 - busy / (step_ms * 1e3), 4),
+                top=[[key[:60], round(us, 1), n] for us, n, key in rows[:8]])
+
+
+def _sdpa_yardstick(torch, cfg, caches, B: int, n_valid: int) -> dict:
+    """The port's decode attention core (``layers._attend``) beside one
+    ``scaled_dot_product_attention`` call on the same full-width inputs: a
+    bf16 query per head against layer 0's filled cache.  A yardstick: the
+    port does not call SDPA."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.layers import _attend
+
+    G, dh = cfg.n_kv_heads, cfg.d_head
+    R = cfg.n_heads // G
+    ck, cv = caches[0]["k"], caches[0]["v"]
+    gen = torch.Generator(device=ck.device).manual_seed(1)
+    q = torch.randn((B, G, R, dh), generator=gen, device=ck.device, dtype=ck.dtype)
+    kT = ck[:, :n_valid].transpose(1, 2).contiguous()
+    vT = cv[:, :n_valid].transpose(1, 2).contiguous()
+    qs = q.reshape(B, G * R, 1, dh)
+    scale = dh ** -0.5
+    port = _attend(q, ck, cv, n_valid, scale)
+    lib = F.scaled_dot_product_attention(qs, kT, vT, enable_gqa=True)
+    err = float((port.reshape(B, G * R, 1, dh) - lib.float()).abs().max())
+    ms = _time_ms(lambda: _attend(q, ck, cv, n_valid, scale), torch)
+    lib_ms = _time_ms(lambda: F.scaled_dot_product_attention(qs, kT, vT, enable_gqa=True),
+                      torch)
+    nbytes = (2 * kT.numel() + q.numel() + lib.numel()) * ck.element_size()
+    return dict(attend_ms=round(ms, 4), sdpa_ms=round(lib_ms, 4), max_abs_diff=err,
+                bound_ms=round(nbytes / PEAK_BYTES_PER_S * 1e3, 4), n_valid=n_valid)
+
+
+def _decode_vs_forward(torch, cfg, model, prompts, pe, tok, first=None):
+    """(relative L2, max |d|, argmax agreement) of the first decode step's
+    logits (``first``, else computed here) against forward over the prompt
+    and ``tok`` at the last position."""
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.models import decode_step, forward, prefill
+
+    cur = prompts.shape[1] + cfg.n_prefix
+    if first is None:
+        _, caches = prefill(cfg, model, prompts, prefix_embeds=pe)
+        first, _ = decode_step(cfg, model, tok, pad_caches(cfg, caches, cur, cur + 1), cur)
+    with torch.no_grad():
+        full = forward(cfg, model, torch.cat([prompts, tok[:, None]], 1),
+                       prefix_embeds=pe)[0][:, -1].float()
+    d = first.float() - full
+    return (float(d.norm() / full.norm()), float(d.abs().max()),
+            float((first.argmax(-1) == full.argmax(-1)).float().mean()))
+
+
+def _per_layer_gap(torch, cfg, model, prompts, pe, tok) -> float:
+    """The largest relative L2, over the layers, between a layer's decode
+    update of token S + 1 and its forward update at that position, every
+    layer fed forward's own hidden states (so rounding does not compound
+    across layers): the decode path of each layer at full width."""
+    from repro_torch.launch.serve import pad_caches
+
+    with torch.no_grad():
+        x = model.embed[torch.cat([prompts, tok[:, None]], 1)]
+        if pe is not None:
+            x = torch.cat([pe.to(x.dtype), x], 1)
+        cur = x.shape[1] - 1
+        pos = torch.arange(cur + 1, device=x.device)
+        worst = 0.0
+        for layer in model.layers:
+            y = layer(x, pos)[0]
+            cache = layer(x[:, :cur], pos[:cur], return_cache=True)[2]
+            yd = layer.decode(x[:, cur:], pad_caches(cfg, [cache], cur, cur + 1)[0], cur)[0]
+            want = (y[:, cur] - x[:, cur]).float()
+            got = (yd[:, 0] - x[:, cur]).float()
+            worst = max(worst, float((got - want).norm() / want.norm()))
+            x = y
+    return worst
+
+
+def serve_full(torch, card: str, arch: str, B: int, S: int, gen: int, profile: bool,
+               end_to_end: bool) -> dict:
+    """Phase 11b/11c: ``repro_torch.launch.serve.main`` at full width in
+    bf16 (B prompts of S tokens, ``gen`` greedy tokens), then the same seed's
+    weights and prompts again for the numbers: prefill seconds, decode ms
+    per step (CUDA events), weight bytes, peak memory, the decode step's HBM
+    bound, and the first decode step's logits against forward over S + 1
+    tokens, in bf16 (``DECODE_VS_FORWARD_REL``) and on the same weights in
+    float32 (``DECODE_VS_FORWARD_REL_F32``), held where ``end_to_end``, and
+    each layer's own float32 gap (held everywhere).  With
+    ``profile``, one decode step under torch.profiler and the SDPA
+    yardstick."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, prefill
+
+    tag = "11b" if profile else "11c"
+    dev = torch.device("cuda", 0)
+    cfg = get_config(arch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    toks = serve.main(["--arch", arch, "--batch", str(B), "--prompt-len", str(S),
+                       "--gen", str(gen), "--seed", "0"])
+    main_s = time.perf_counter() - t0
+    main_peak = torch.cuda.max_memory_allocated()
+    if tuple(toks.shape) != (B, gen) or toks.device.type != "cuda":
+        _fail(f"{tag} {arch}: main returned {tuple(toks.shape)} on {toks.device}")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        _fail(f"{tag} {arch}: a token outside the vocabulary")
+
+    model, prompts, pe = serve.make_inputs(cfg, 0, B, S, dev)
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    nparams = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    last, caches = prefill(cfg, model, prompts, prefix_embeds=pe)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    if not bool(torch.isfinite(last).all()):
+        _fail(f"{tag} {arch}: prefill logits not finite")
+    cur = S + cfg.n_prefix
+    caches = serve.pad_caches(cfg, caches, cur, cur + gen)
+    tok = last.argmax(-1)
+    out, first, finite = [tok], None, []
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for i in range(gen - 1):
+        logits, caches = decode_step(cfg, model, tok, caches, cur + i)
+        finite.append(torch.isfinite(logits).all())
+        if i == 0:
+            first = logits.clone()
+        tok = logits.argmax(-1)
+        out.append(tok)
+    b.record()
+    b.synchronize()
+    step_ms = a.elapsed_time(b) / (gen - 1)
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(torch.stack(finite).all()):
+        _fail(f"{tag} {arch}: decode logits not finite")
+    mine = torch.stack(out, 1)
+    rel, max_abs, agree = _decode_vs_forward(torch, cfg, model, prompts, pe, out[0], first)
+    if end_to_end and not rel <= DECODE_VS_FORWARD_REL:
+        _fail(f"{tag} {arch}: first decode step vs forward(S+1): relative L2 {rel} > "
+              f"{DECODE_VS_FORWARD_REL}")
+    nbytes = _decode_bytes(cfg, model, caches, B, cur + gen // 2)
+    row = dict(
+        arch=arch, card=card, batch=B, prompt=S, gen=gen, params=nparams,
+        weight_bytes=wbytes, main_s=round(main_s, 3), main_peak_bytes=main_peak,
+        prefill_s=round(prefill_s, 4), prefill_tok_s=round(B * S / prefill_s, 1),
+        decode_ms_per_step=round(step_ms, 4), decode_tok_s=round(B * 1e3 / step_ms, 1),
+        max_memory_allocated=peak, decode_bytes=nbytes,
+        decode_bound_ms=round(nbytes / PEAK_BYTES_PER_S * 1e3, 4),
+        decode_vs_forward_rel_l2=round(rel, 6), decode_vs_forward_max_abs=round(max_abs, 5),
+        argmax_equal=agree, tokens_equal_main=bool(torch.equal(mine, toks)))
+    print(f"{tag} {arch} at full width ({nparams / 1e9:.3f} G params, bf16), batch {B}, "
+          f"prompt {S}, {gen} tokens: prefill {prefill_s:.4f} s ({row['prefill_tok_s']} "
+          f"tok/s); decode {step_ms:.4f} ms/step ({row['decode_tok_s']} tok/s) against a "
+          f"bound of {row['decode_bound_ms']} ms ({nbytes / 1e9:.3f} GB at 3.35 TB/s); "
+          f"weights {wbytes / 1e9:.3f} GB, max_memory_allocated {peak / 2**30:.3f} GiB; "
+          f"decode step 1 vs forward(S+1): relative L2 {rel:.5f} (limit "
+          f"{DECODE_VS_FORWARD_REL if end_to_end else 'none, recorded'}), max |diff| "
+          f"{row['decode_vs_forward_max_abs']}; [{card}]", flush=True)
+    if profile:
+        row["profile"] = _profile_step(torch, cfg, model, tok, caches, cur + gen - 1, step_ms)
+        row["sdpa"] = _sdpa_yardstick(torch, cfg, caches, B, cur + gen)
+        print(f"{tag} decode attention core vs scaled_dot_product_attention, layer 0, "
+              f"{row['sdpa']['n_valid']} keys: {row['sdpa']['attend_ms']} ms vs "
+              f"{row['sdpa']['sdpa_ms']} ms (bound {row['sdpa']['bound_ms']} ms), max |diff| "
+              f"{row['sdpa']['max_abs_diff']:.3g}; [{card}]", flush=True)
+    # the same weights and tokens in float32 (TF32 off): the two paths must
+    # compute the same function
+    del caches, last, first
+    model.float()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    rel32, max32, agree32 = _decode_vs_forward(torch, cfg32, model, prompts, pe, out[0])
+    layer32 = _per_layer_gap(torch, cfg32, model, prompts, pe, out[0])
+    row.update(decode_vs_forward_rel_l2_f32=rel32, decode_vs_forward_max_abs_f32=max32,
+               argmax_equal_f32=agree32, decode_vs_forward_worst_layer_f32=layer32)
+    print(f"{tag} {arch} float32 on the same weights: decode step 1 vs forward(S+1) "
+          f"relative L2 {rel32:.3g} (limit "
+          f"{DECODE_VS_FORWARD_REL_F32 if end_to_end else 'none, recorded'}), max |diff| "
+          f"{max32:.3g}; worst layer's own update {layer32:.3g} (limit "
+          f"{DECODE_VS_FORWARD_REL_F32})", flush=True)
+    if end_to_end and not rel32 <= DECODE_VS_FORWARD_REL_F32:
+        _fail(f"{tag} {arch}: float32 decode step 1 vs forward(S+1): relative L2 {rel32} > "
+              f"{DECODE_VS_FORWARD_REL_F32}")
+    if not layer32 <= DECODE_VS_FORWARD_REL_F32:
+        _fail(f"{tag} {arch}: float32 decode vs forward of one layer: relative L2 {layer32} "
+              f"> {DECODE_VS_FORWARD_REL_F32}")
+    print(f"{tag} {json.dumps(row)}", flush=True)
+    return row
+
+
+def check_lm_serving(torch, card: str) -> None:
+    """Phase 11: 11a every architecture at smoke width, card == CPU; 11b
+    qwen2.5-3b and 11c granite-moe-1b-a400m and mamba2-2.7b at full width
+    through ``launch.serve.main``; 11d the ``serve_lm`` twin on the card,
+    in its own process beside 11a-11c."""
+    t0 = time.perf_counter()
+    twin = _start_twins(("serve_lm",))
+    try:
+        check_lm_smoke(torch)
+        for arch, B, S, gen, prof, gate in LM_FULL:
+            serve_full(torch, card, arch, B, S, gen, prof, gate)
+            torch.cuda.empty_cache()
+    except BaseException:
+        for p in twin.values():
+            p.kill()
+            p.wait()
+        raise
+    _wait_twins(twin, "11d", t0)
 
 
 def main(argv=None) -> int:
@@ -2345,6 +2729,12 @@ def main(argv=None) -> int:
         args.matching_scale, args.edge_factor)
     check_quality(torch, g10)
     print(f"phase 10: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- phase 11: LM serving (this slice's path); it runs no hand-written
+    # kernel
+    t = time.perf_counter()
+    check_lm_serving(torch, card)
+    print(f"phase 11: {time.perf_counter() - t:.1f} s", flush=True)
     kernels = [dict(
         name="lp_score_rows",
         route="cuda",

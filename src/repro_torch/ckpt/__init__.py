@@ -1,7 +1,7 @@
 """Checkpointing of the port (the torch twin of ``repro.ckpt``).  The
 elastic reshard (``reshard_restore``, ``shardings_for``) comes with the
-port of the LM scaffolding (``ROADMAP.md``, Queue 1 item 4); the
-distributed path it builds on is in place."""
+mesh and expert parallelism of the LM scaffolding (``ROADMAP.md``, Queue 1
+item 4c)."""
 
 from .checkpoint import AsyncCheckpointer, latest_step, load, restore, save
 

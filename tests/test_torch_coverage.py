@@ -1,21 +1,42 @@
-"""Library coverage of the port: every name in the ``__all__`` of the
-reference's modules under ``core``, ``graph``, ``kernels``, ``deploy``,
-``dynamic``, ``resilience``, ``obs``, ``ckpt`` and ``launch/mesh.py`` exists
-in the port's module of the same path, or stands in the table below with
-its counterpart or the queue item that ports it.  The reference's
-``__all__`` lists are read with ``ast``, without importing the reference."""
+"""Library coverage of the port: every name the reference's modules under
+``core``, ``graph``, ``kernels``, ``deploy``, ``dynamic``, ``resilience``,
+``obs``, ``ckpt``, ``configs``, ``models``, ``optim``, ``data`` and
+``launch`` export exists in the port's module of the same path, or stands
+in the tables below with its counterpart or the queue item that ports it.
+A module's exports are its ``__all__``, or without one its public top-level
+definitions; they are read with ``ast``, without importing the
+reference."""
 
 import ast
 import importlib
+import importlib.util
 from pathlib import Path
 
 import pytest
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 REF = SRC / "repro"
-PACKAGES = ("core", "graph", "kernels", "deploy", "dynamic", "resilience", "obs", "ckpt")
+PACKAGES = ("core", "graph", "kernels", "deploy", "dynamic", "resilience", "obs", "ckpt",
+            "configs", "models", "optim", "data", "launch")
 
-_Q4 = "Queue 1 item 4"
+# ROADMAP.md, Queue 1 item 4: (4b) training, (4c) the mesh and expert
+# parallelism, (4d) the dry-run tooling
+_Q4B = "Queue 1 item 4b"
+_Q4C = "Queue 1 item 4c"
+_Q4D = "Queue 1 item 4d"
+ITEMS = (_Q4B, _Q4C, _Q4D)
+#: a name the reference's ``__all__`` lists but its module never defines
+UNDEFINED = "undefined in the reference"
+
+#: reference modules the port has not taken on yet, with the item that
+#: ports them: each of their names is open
+MODULE_ITEMS = {
+    "optim": _Q4B, "optim.adamw": _Q4B, "optim.compression": _Q4B,
+    "optim.schedule": _Q4B, "data": _Q4B, "data.pipeline": _Q4B, "launch.train": _Q4B,
+    "models.sharding": _Q4C, "launch.steps": _Q4C, "ckpt.elastic": _Q4C,
+    "launch.dryrun": _Q4D, "launch.dryrun_paper": _Q4D, "launch.hlo_analysis": _Q4D,
+    "launch.roofline": _Q4D, "launch.reanalyze": _Q4D, "launch.summarize": _Q4D,
+}
 
 #: (reference module, name) -> its counterpart in the port (a dotted path
 #: that must resolve) or, for a name the port has not taken on yet, the
@@ -40,31 +61,48 @@ NOT_BY_NAME = {
         "repro_torch.core.evo_device.evo_generation_step_sharded",
     ("kernels.lp_score.lp_score", "LANE"): "repro_torch.graph.packing.ELL_WIDTH",
     ("kernels.lp_score.lp_score", "TILE_R"): "repro_torch.graph.packing.ell_pack",
-    ("ckpt", "reshard_restore"): _Q4,
-    ("ckpt", "shardings_for"): _Q4,
-    ("ckpt.elastic", "reshard_restore"): _Q4,
-    ("ckpt.elastic", "shardings_for"): _Q4,
-    ("launch.mesh", "make_production_mesh"): _Q4,
+    ("ckpt", "reshard_restore"): _Q4C,
+    ("ckpt", "shardings_for"): _Q4C,
+    ("launch.mesh", "make_production_mesh"): _Q4C,
+    ("models", "param_pspecs"): _Q4C,
+    ("models", "act_specs"): _Q4C,
+    ("models", "DP"): _Q4C,
+    ("models", "TP"): _Q4C,
+    ("models.moe", "moe_ep"): _Q4C,
+    ("models.moe", "MoEParams"): UNDEFINED,
 }
 
 
-def _all_of(path: Path):
-    """The module's literal ``__all__`` list, or None."""
+def _targets(node):
+    return (node.targets if isinstance(node, ast.Assign)
+            else [node.target] if isinstance(node, ast.AnnAssign) else [])
+
+
+def _defined(path: Path):
+    """The public names a module defines at top level (functions, classes,
+    assignments), in order."""
+    out = []
     for node in ast.parse(path.read_text(), filename=str(path)).body:
-        targets = (node.targets if isinstance(node, ast.Assign)
-                   else [node.target] if isinstance(node, ast.AnnAssign) else [])
-        if any(isinstance(t, ast.Name) and t.id == "__all__" for t in targets):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.append(node.name)
+        out += [t.id for t in _targets(node) if isinstance(t, ast.Name)]
+    return [n for n in out if not n.startswith("_")]
+
+
+def _exports(path: Path):
+    """The module's literal ``__all__`` list, else its public definitions."""
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if any(isinstance(t, ast.Name) and t.id == "__all__" for t in _targets(node)):
             return [ast.literal_eval(e) for e in node.value.elts]
-    return None
+    return _defined(path)
 
 
 def _reference_modules():
     files = [f for pkg in PACKAGES for f in sorted((REF / pkg).rglob("*.py"))]
-    files.append(REF / "launch" / "mesh.py")
     out = []
     for f in files:
-        names = _all_of(f)
-        if names is not None:
+        names = _exports(f)
+        if names:
             rel = f.relative_to(REF).with_suffix("")
             parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
             out.append((".".join(parts), names))
@@ -87,16 +125,29 @@ def _resolve(dotted: str):
     raise ModuleNotFoundError(dotted)
 
 
+def _port_has(mod: str) -> bool:
+    try:
+        return importlib.util.find_spec(f"repro_torch.{mod}") is not None
+    except ModuleNotFoundError:            # its parent package is missing too
+        return False
+
+
 def test_reference_modules_found():
     mods = dict(MODULES)
-    assert len(MODULES) >= 50
+    assert len(MODULES) >= 85
     for mod in ("core", "core.baselines", "core.modularity", "core.autoshard",
-                "graph.generators", "kernels.lp_score.ops", "launch.mesh"):
+                "graph.generators", "kernels.lp_score.ops", "launch.mesh", "launch.serve",
+                "configs.registry", "configs.qwen2_5_3b", "models.model", "models.mamba2"):
         assert mod in mods, mod
+    assert mods["launch.serve"] == ["pad_caches", "main"]
 
 
 @pytest.mark.parametrize("mod,names", MODULES, ids=[m for m, _ in MODULES])
 def test_every_reference_name_has_a_port_counterpart(mod, names):
+    if mod in MODULE_ITEMS:
+        assert MODULE_ITEMS[mod] in ITEMS
+        assert not _port_has(mod), f"repro_torch.{mod} exists: drop its table entry"
+        return
     missing = []
     for name in names:
         where = NOT_BY_NAME.get((mod, name))
@@ -104,14 +155,18 @@ def test_every_reference_name_has_a_port_counterpart(mod, names):
             port = importlib.import_module(f"repro_torch.{mod}")
             if not hasattr(port, name):
                 missing.append(name)
-        elif where != _Q4:
+            continue
+        assert not hasattr(importlib.import_module(f"repro_torch.{mod}"), name), (
+            f"repro_torch.{mod}.{name} exists: drop its table entry")
+        if where == UNDEFINED:
+            assert name not in _defined(REF.joinpath(*mod.split(".")).with_suffix(".py"))
+        elif where not in ITEMS:
             _resolve(where)
-            assert not hasattr(importlib.import_module(f"repro_torch.{mod}"), name), (
-                f"repro_torch.{mod}.{name} exists: drop its table entry")
     assert not missing, f"repro_torch.{mod} lacks {missing}"
 
 
 def test_table_names_only_reference_names():
     mods = dict(MODULES)
     stale = [key for key in NOT_BY_NAME if key[1] not in mods.get(key[0], ())]
+    stale += [mod for mod in MODULE_ITEMS if mod not in mods]
     assert not stale, stale

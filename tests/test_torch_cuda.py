@@ -1,8 +1,8 @@
 """repro_torch cases that need an NVIDIA GPU: each hand-written CUDA kernel
 against its plain PyTorch version on the card, and the dense round's, the
 batched GA's, the dynamic serving subsystem's, the DR stack's, the
-distributed path's and the matching baseline's card paths against their
-CPU paths.  Marked ``cuda``; they skip without a device.
+distributed path's, the matching baseline's and the LM's card paths
+against their CPU paths.  Marked ``cuda``; they skip without a device.
 This file imports neither jax nor the reference package, so it runs on a
 GPU machine that has only PyTorch:
 
@@ -302,3 +302,39 @@ def test_matching_multilevel_card_matches_cpu(monkeypatch):
     cpu = B.matching_multilevel(g, 4, seed=0, device="cpu")
     assert len(card.level_sizes) > 1
     np.testing.assert_array_equal(card.labels, cpu.labels)
+
+
+@pytest.mark.cuda
+def test_lm_prefill_and_decode_card_matches_cpu():
+    """The LM at smoke width in float32, the same weights on both devices:
+    prefill's last logits and four greedy decode steps agree within rtol
+    1e-4 / atol 1e-3 (reordered float32 sums, TF32 off) and the tokens are
+    equal, for a dense, a sliding-window, an MoE and a hybrid Mamba stack."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import copy
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.models import decode_step, init_params, prefill
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    for arch in ("qwen2.5-3b", "gemma3-27b", "granite-moe-1b-a400m", "jamba-1.5-large-398b"):
+        cfg = ARCHS[arch].smoke()
+        gen = torch.Generator().manual_seed(0)
+        cpu = init_params(cfg, gen, "cpu")
+        tokens = torch.randint(0, cfg.vocab, (2, 20), generator=gen)
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model = cpu if dev == "cpu" else copy.deepcopy(cpu).to(dev)
+            last, caches = prefill(cfg, model, tokens.to(dev))
+            caches = pad_caches(cfg, caches, 20, 25)
+            logits, tok = [last], last.argmax(-1)
+            for i in range(4):
+                lg, caches = decode_step(cfg, model, tok, caches, 20 + i)
+                logits.append(lg)
+                tok = lg.argmax(-1)
+            out[dev] = [t.cpu() for t in logits]
+        for a, b in zip(out["cpu"], out["cuda"]):
+            torch.testing.assert_close(b, a, rtol=1e-4, atol=1e-3)
+            assert torch.equal(a.argmax(-1), b.argmax(-1)), arch

@@ -1,7 +1,7 @@
-"""The port's example twins (``examples/torch``) on the CPU: the three that
+"""The port's example twins (``examples/torch``) on the CPU: the four that
 finish in seconds run with ``--device cpu`` in a subprocess, exit 0 and
 print the lines of their reference examples (the rest run on the card,
-through ``chip_smoke.py`` phase 10 and by hand)."""
+through ``chip_smoke.py`` phases 10 and 11 and by hand)."""
 
 import os
 import subprocess
@@ -26,6 +26,11 @@ CASES = {
     "autoshard_moe": (
         "cross-group co-activation per token: contiguous=1.925 partitioned=1.045",
         "group sizes: [8 8 8 8] (balanced = 8 per group)",
+    ),
+    "serve_lm": (
+        "[prefill] 4x32 in ",
+        "[decode] 15 steps in ",
+        "[sample tokens] [196  66 120 122 220 220 220 220 220 220 220 220 220 220 220 220]",
     ),
 }
 
