@@ -88,7 +88,22 @@ Phases, each of which fails the run:
    and layer by layer, one decode step under ``torch.profiler`` and the
    decode attention beside ``scaled_dot_product_attention``; (c) the same
    for granite-moe-1b-a400m and mamba2-2.7b (batch 4, prompt 256, 32
-   tokens) without the profiler; (d) the ``serve_lm`` twin on the card.
+   tokens) without the profiler; (d) the ``serve_lm`` twin on the card;
+12. LM training (``repro_torch.optim``, ``repro_torch.data``,
+   ``repro_torch.launch.steps``, ``repro_torch.launch.train``): (a) every
+   architecture at smoke width in float32, the same weights and batches on
+   the card and the CPU: ``loss_fn``'s loss and every gradient leaf, three
+   train steps with int8 compression off and on; mamba2 and jamba at the
+   full-width SSD chunk (256), every gradient finite; (b) qwen2.5-3b at full
+   width in bf16 with a float32 master through ``launch.train.main`` (batch
+   4 x 512, 6 steps, every loss and gnorm finite), then the same seed's
+   state for the numbers (step time, tokens/s, peak memory, the step's
+   bound), one step under ``torch.profiler`` and ``adamw_update`` beside
+   ``torch.optim.AdamW(fused=True)``; (c) granite-moe-1b-a400m and
+   mamba2-2.7b at full width, 4 steps; one full-width layer of each of the
+   three in float32, its gradients card == CPU; (d) resume at step 6 of 12
+   on the card equal to the uninterrupted run, and the ``train_lm`` twin
+   (beside 12a).
 Then one JSON line with each kernel's numbers and, last, the device line.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -2356,25 +2371,24 @@ def _decode_bytes(cfg, model, caches, B: int, n_valid: int) -> int:
     return n
 
 
-def _profile_step(torch, cfg, model, tok, caches, pos: int, step_ms: float) -> dict:
-    """One decode step under torch.profiler: the kernels' device time by
-    name, and the card's idle share against the profiled step's wall time
-    and against the unprofiled step time ``step_ms``.  Only device events
-    count: a CPU op's self device time repeats its kernels' time."""
+def _profile(torch, tag: str, what: str, fn, step_ms: float, top: int = 12) -> dict:
+    """``fn()`` once under torch.profiler: the kernels' device time by
+    name, and the card's idle share against the profiled call's wall time
+    and against the unprofiled time ``step_ms``.  Only kernels count: a CPU
+    op's self device time repeats its kernels' time, and a user annotation
+    on the device's timeline (``Optimizer.step#AdamW.step``) spans them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.models import decode_step
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        decode_step(cfg, model, tok, caches, pos)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     rows = []
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        if ev.device_type != DeviceType.CUDA or getattr(ev, "is_user_annotation", False):
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -2384,19 +2398,27 @@ def _profile_step(torch, cfg, model, tok, caches, pos: int, step_ms: float) -> d
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     if busy <= 0:
-        print("11b profiler: no device time recorded", flush=True)
+        print(f"{tag} profiler: no device time recorded", flush=True)
         return dict(busy_us=None)
-    print(f"11b profiler, one decode step at pos {pos}: {len(rows)} kernels' names, "
+    print(f"{tag} profiler, {what}: {len(rows)} kernels' names, "
           f"{sum(r[1] for r in rows)} launches, device busy {busy:.1f} us of a "
           f"{wall_us:.1f} us profiled step", flush=True)
-    print(f"11b   {'self device us':>14s} {'share':>6s} {'calls':>5s}  kernel", flush=True)
-    for us, n, key in rows[:12]:
-        print(f"11b   {us:14.1f} {us / busy:6.1%} {n:5d}  {key[:90]}", flush=True)
+    print(f"{tag}   {'self device us':>14s} {'share':>6s} {'calls':>5s}  kernel", flush=True)
+    for us, n, key in rows[:top]:
+        print(f"{tag}   {us:14.1f} {us / busy:6.1%} {n:5d}  {key[:90]}", flush=True)
     return dict(busy_us=round(busy, 1), launches=sum(r[1] for r in rows),
                 profiled_wall_us=round(wall_us, 1),
                 idle_share_profiled=round(1 - busy / wall_us, 4),
                 idle_share=round(1 - busy / (step_ms * 1e3), 4),
                 top=[[key[:60], round(us, 1), n] for us, n, key in rows[:8]])
+
+
+def _profile_step(torch, cfg, model, tok, caches, pos: int, step_ms: float) -> dict:
+    """One decode step under torch.profiler (``_profile``)."""
+    from repro_torch.models import decode_step
+
+    return _profile(torch, "11b", f"one decode step at pos {pos}",
+                    lambda: decode_step(cfg, model, tok, caches, pos), step_ms)
 
 
 def _sdpa_yardstick(torch, cfg, caches, B: int, n_valid: int) -> dict:
@@ -2609,6 +2631,455 @@ def check_lm_serving(torch, card: str) -> None:
     _wait_twins(twin, "11d", t0)
 
 
+# --------------------------------------------------------------------------
+# phase 12: LM training (repro_torch.optim, repro_torch.data,
+# repro_torch.launch.steps, repro_torch.launch.train)
+# --------------------------------------------------------------------------
+
+#: 12a, card against CPU in float32 at smoke width: the limits the CPU
+#: parity tests hold the port to against the reference
+#: (tests/test_torch_grads*.py, tests/test_torch_train.py)
+TRAIN_LOSS_RTOL = 1e-5
+GRAD_REL_L2 = 3e-5
+#: jamba's 14 random-weight SSD layers amplify rounding (the reference's
+#: own gradients move by 2.1e-4 under half-ulp noise on its embedding)
+GRAD_REL_L2_JAMBA = 5e-4
+#: three train steps, each from the same state on both devices: each
+#: parameter leaf, and all of them together (Adam's per-element
+#: normalization turns rounding-level gradients into steps of lr; a
+#: quantizer flip under compression does the same).  jamba's leaves and
+#: its free-running losses are recorded, not held: its gradients agree to
+#: GRAD_REL_L2_JAMBA, Adam turns that into sign noise on its zero-initialized
+#: leaves (0.13 against the reference on the CPU), and two runs part after
+#: two steps, the reference and the port on the CPU too (gnorm 1.42x apart
+#: at step 3), while each step from the same state agrees
+STEP_LEAF_REL_L2 = 1e-2
+STEP_ALL_REL_L2 = {False: 1e-5, True: 1e-4}
+#: jamba's limit for all its parameters together, as loose against the
+#: others' as its gradient limit (measured on the card: 3.0e-5 plain,
+#: 5.6e-5 with compression)
+STEP_ALL_REL_L2_JAMBA = 1e-3
+#: one full-width layer in float32, card against CPU: its input and
+#: parameter gradients (the limit phase 11 holds decode to)
+LAYER_GRAD_REL_L2 = 1e-3
+#: the full-width training runs: (arch, batch, sequence, steps, through
+#: launch.train.main with the profiler and the optimizer yardstick)
+TRAIN_FULL = (("qwen2.5-3b", 4, 512, 6, True),
+              ("granite-moe-1b-a400m", 4, 512, 4, False),
+              ("mamba2-2.7b", 4, 512, 4, False))
+#: NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate
+PEAK_BF16_FLOPS_PER_S = 989e12
+
+
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want||, in float64 on the host."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    d, n = float((got - want).norm()), float(want.norm())
+    return d / n if n else d
+
+
+def _pipeline_batch(torch, cfg, step: int, B: int, S: int, dev):
+    """The data pipeline's batch ``step`` (seed 0) on ``dev``."""
+    from repro_torch.data import TokenPipeline
+
+    pipe = TokenPipeline(vocab=cfg.vocab, batch=B, seq=S, seed=0, n_prefix=cfg.n_prefix,
+                         d_model=cfg.d_model)
+    out = {k: torch.from_numpy(v).to(dev) for k, v in pipe.batch_at(step).items()}
+    out["tokens"] = out["tokens"].long()
+    return out
+
+
+def _loss_grads(cfg, model, batch):
+    """(loss, {name: gradient}) of ``loss_fn`` with remat, by autograd."""
+    from repro_torch.models import loss_fn
+
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = loss_fn(cfg, model, batch, remat=True)
+    loss.backward()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return loss.detach(), grads
+
+
+def _opt_to(opt, dev):
+    """An optimizer state (``AdamWState`` or ``(AdamWState, residuals)``)
+    copied to ``dev``."""
+    if hasattr(opt, "_fields"):
+        return type(opt)(*(_opt_to(f, dev) for f in opt))
+    if isinstance(opt, tuple):
+        return tuple(_opt_to(f, dev) for f in opt)
+    if isinstance(opt, dict):
+        return {k: v.to(dev, copy=True) for k, v in opt.items()}
+    return opt.to(dev, copy=True)
+
+
+def _steps_card_vs_cpu(torch, cfg, start, compress: bool) -> dict:
+    """Three ``make_train_step`` steps from ``start`` (a CPU LM) on the CPU
+    and on the card.  Free-running, each device trains on its own: the
+    worst relative difference of the losses.  From the same state, before
+    each step the card takes the CPU's parameters and optimizer state: the
+    worst relative difference of that step's loss, the worst parameter
+    leaf's relative L2 and all parameters' together."""
+    import copy
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw_init, ef_init
+
+    step = make_train_step(cfg, lr=1e-3, remat=True, compress_grads=compress)
+
+    def fresh(dev):
+        model = copy.deepcopy(start).to(dev)
+        named = dict(model.named_parameters())
+        opt = adamw_init(named)
+        return model, (opt, ef_init(named)) if compress else opt
+
+    out = dict(free=0.0, loss=0.0, leaf=0.0, all=0.0)
+    (cpu, cpu_opt), (free, free_opt) = fresh("cpu"), fresh("cuda")
+    for s in range(3):
+        card, card_opt = copy.deepcopy(cpu).to("cuda"), _opt_to(cpu_opt, "cuda")
+        cpu, cpu_opt, mc = step(cpu, cpu_opt, _pipeline_batch(torch, cfg, s, 2, 24, "cpu"))
+        card, card_opt, mg = step(card, card_opt, _pipeline_batch(torch, cfg, s, 2, 24, "cuda"))
+        free, free_opt, mf = step(free, free_opt, _pipeline_batch(torch, cfg, s, 2, 24, "cuda"))
+        lc = float(mc["loss"])
+        out["free"] = max(out["free"], abs(float(mf["loss"]) - lc) / abs(lc))
+        out["loss"] = max(out["loss"], abs(float(mg["loss"]) - lc) / abs(lc))
+        pc, pg = dict(cpu.named_parameters()), dict(card.named_parameters())
+        out["leaf"] = max(out["leaf"], max(_rel_l2(pg[k], pc[k]) for k in pc))
+        out["all"] = max(out["all"], _rel_l2(
+            torch.cat([t.detach().flatten() for t in pg.values()]),
+            torch.cat([t.detach().flatten() for t in pc.values()])))
+    return out
+
+
+def check_train_smoke(torch) -> None:
+    """Phase 12a: every architecture at smoke width in float32, the same
+    weights and batches on the card and the CPU: the loss and every
+    gradient leaf of ``loss_fn`` with remat, and three ``make_train_step``
+    steps with int8 compression off and on (``_steps_card_vs_cpu``); then mamba2 and jamba at the full-width
+    chunk (256) and sequence 256, whose gradients must all be finite on the
+    card.  Every line prints before a failure fails the phase."""
+    import dataclasses
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.get_float32_matmul_precision() != "highest":
+        _fail("12a: float32 matmuls may use TF32")
+    t0 = time.perf_counter()
+    bad = []
+    for arch in ARCHS:
+        cfg = ARCHS[arch].smoke()
+        chaotic = arch == "jamba-1.5-large-398b"
+        tol = GRAD_REL_L2_JAMBA if chaotic else GRAD_REL_L2
+        cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = init_params(cfg, torch.Generator().manual_seed(0), "cpu").to("cuda")
+        l0, g0 = _loss_grads(cfg, cpu, _pipeline_batch(torch, cfg, 0, 2, 24, "cpu"))
+        l1, g1 = _loss_grads(cfg, card, _pipeline_batch(torch, cfg, 0, 2, 24, "cuda"))
+        e_loss = abs(float(l1) - float(l0)) / abs(float(l0))
+        e_grad = max(_rel_l2(g1[k], g0[k]) for k in g0)
+        if not (e_loss <= TRAIN_LOSS_RTOL and e_grad <= tol):
+            bad.append(f"{arch}: loss {e_loss:.3g}, worst gradient leaf {e_grad:.3g} (limit {tol})")
+        steps = []
+        for compress in (False, True):
+            e = _steps_card_vs_cpu(torch, cfg, cpu, compress)
+            lim = STEP_ALL_REL_L2_JAMBA if chaotic else STEP_ALL_REL_L2[compress]
+            ok = (e["loss"] <= TRAIN_LOSS_RTOL and e["all"] <= lim
+                  and (chaotic or (e["free"] <= TRAIN_LOSS_RTOL
+                                   and e["leaf"] <= STEP_LEAF_REL_L2)))
+            if not ok:
+                bad.append(f"{arch} 3 steps, compress {compress}: {e}")
+            steps.append(f"{'int8' if compress else 'plain'} step losses {e['loss']:.3g}, "
+                         f"worst leaf {e['leaf']:.3g}, all {e['all']:.3g}, free-running "
+                         f"losses {e['free']:.3g}")
+        print(f"12a {arch}: loss_fn and its gradients, 3 train steps: card == cpu (loss "
+              f"{e_loss:.3g}, worst gradient leaf {e_grad:.3g}; {'; '.join(steps)})", flush=True)
+    for arch in ("mamba2-2.7b", "jamba-1.5-large-398b"):
+        cfg = ARCHS[arch].smoke()
+        cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, chunk=256))
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        loss, grads = _loss_grads(cfg, model, _pipeline_batch(torch, cfg, 0, 2, 256, "cuda"))
+        nonfinite = sum(int((~torch.isfinite(g)).sum()) for g in grads.values())
+        n = sum(g.numel() for g in grads.values())
+        print(f"12a {arch} at chunk 256, sequence 256: loss {float(loss):.5f}, {nonfinite} of "
+              f"{n} gradient entries non-finite", flush=True)
+        if nonfinite or not bool(torch.isfinite(loss)):
+            bad.append(f"{arch} at chunk 256: {nonfinite} non-finite gradient entries")
+    print(f"12a: {time.perf_counter() - t0:.1f} s", flush=True)
+    if bad:
+        _fail("12a: " + "; ".join(bad))
+
+
+def _train_main(torch, tag: str, arch: str, B: int, S: int, steps: int) -> dict:
+    """``repro_torch.launch.train.main`` at full width on the card, its
+    lines echoed under ``tag``: every loss and gnorm must be finite."""
+    import contextlib
+    import io
+    import math
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        losses = train.main(["--arch", arch, "--steps", str(steps), "--batch", str(B),
+                             "--seq", str(S), "--log-every", "1", "--seed", "0"])
+    secs = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"{tag} {line}", flush=True)
+    gnorms = [float(line.split("gnorm")[1].split()[0]) for line in lines
+              if line.startswith("step ")]
+    if len(losses) != steps or len(gnorms) != steps or \
+            not all(math.isfinite(x) for x in losses + gnorms):
+        _fail(f"{tag} {arch}: main's losses {losses}, gnorms {gnorms}")
+    return dict(main_s=round(secs, 3), main_peak_bytes=peak, main_losses=losses,
+                main_gnorms=gnorms)
+
+
+def _train_bound(cfg, model, B: int, S: int) -> dict:
+    """The least time of one train step with remat: its matmul FLOPs (8 per
+    weight of a matmul and token: forward, the recomputed forward and the
+    backward's two products; the routed top-k experts of a MoE layer; the
+    causal half of each attention layer's score and value products, four
+    times) at the dense bf16 rate, and the optimizer's bytes (each
+    gradient read and parameter written once, the float32 mu, nu and
+    master read and written) at HBM bandwidth; the larger bounds it."""
+    T = B * S
+    n_mm = 0
+    for name, p in model.named_parameters():
+        if name == "embed" and not cfg.tie_embeddings:
+            continue                                  # a lookup, no matmul
+        if p.dim() < 2:
+            continue                                  # norms, biases
+        n = p.numel()
+        if ".moe.w_" in name:
+            n = n * cfg.moe.topk // cfg.moe.n_experts
+        n_mm += n
+    n_attn = sum(1 for mix, _ in cfg.layer_plan() if mix.startswith("attn"))
+    attn = 4 * 4 * B * cfg.n_heads * cfg.d_head * S * (S + 1) // 2 * n_attn
+    flops = 8 * n_mm * T + attn
+    opt_bytes = sum(p.numel() * (2 * p.element_size() + 24) for p in model.parameters())
+    flops_ms = flops / PEAK_BF16_FLOPS_PER_S * 1e3
+    bytes_ms = opt_bytes / PEAK_BYTES_PER_S * 1e3
+    return dict(matmul_params=n_mm, flops=flops, flops_ms=round(flops_ms, 4),
+                opt_bytes=opt_bytes, opt_bytes_ms=round(bytes_ms, 4),
+                bound_ms=round(max(flops_ms, bytes_ms), 4),
+                bound_by="operations" if flops_ms >= bytes_ms else "bytes",
+                sum_ms=round(flops_ms + bytes_ms, 4))
+
+
+def _adamw_yardstick(torch, tag: str, model, opt) -> dict:
+    """``adamw_update`` alone on the run's state (CUDA events, one
+    profiled call), then ``torch.optim.AdamW(fused=True)`` on the same
+    float32 masters: a yardstick, never on the path.  Frees the model's
+    parameters and the moments first, so the fused optimizer's states fit
+    beside the masters; ``opt`` keeps its masters only."""
+    from repro_torch.optim import adamw_update
+
+    named = dict(model.named_parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    grads = {k: torch.randn(p.shape, generator=gen, device="cuda", dtype=p.dtype) * 1e-3
+             for k, p in named.items()}
+
+    def ours():
+        adamw_update(grads, opt, named, lr=1e-3)
+
+    ms = _time_ms(ours, torch, warmup=1, batches=3, reps=2)
+    prof = _profile(torch, tag, "one adamw_update", ours, ms, top=3)
+    n = sum(p.numel() for p in named.values())
+    nbytes = sum(p.numel() * (2 * p.element_size() + 24) for p in named.values())
+    del grads, named
+    for p in model.parameters():
+        p.data = torch.empty(0, device="cuda")
+    opt.mu.clear()
+    opt.nu.clear()
+    torch.cuda.empty_cache()
+    params = [torch.nn.Parameter(m) for m in opt.master.values()]
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen, device="cuda") * 1e-3
+    fused = torch.optim.AdamW(params, lr=1e-3, betas=(0.9, 0.95), eps=1e-8,
+                              weight_decay=0.1, fused=True)
+    fused_ms = _time_ms(fused.step, torch, warmup=1, batches=3, reps=2)
+    fprof = _profile(torch, tag, "one fused torch.optim.AdamW step", fused.step, fused_ms, top=3)
+    fused_bytes = 28 * n
+    row = dict(params=n, adamw_ms=round(ms, 4), adamw_launches=prof.get("launches"),
+               adamw_bytes=nbytes, adamw_bound_ms=round(nbytes / PEAK_BYTES_PER_S * 1e3, 4),
+               fused_adamw_ms=round(fused_ms, 4), fused_launches=fprof.get("launches"),
+               fused_bound_ms=round(fused_bytes / PEAK_BYTES_PER_S * 1e3, 4))
+    del params, fused
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_full(torch, card: str, arch: str, B: int, S: int, steps: int, profile: bool) -> dict:
+    """Phase 12b/12c: full width in bf16, batch ``B`` x sequence ``S``.
+    With ``profile`` (12b) first ``launch.train.main`` for ``steps`` steps;
+    then the same seed's state and batches through ``make_train_step``,
+    each step timed on the host clock to a synchronize: the median over
+    steps 2 on, tokens/s, ``max_memory_allocated``, every loss and gnorm
+    finite, the step's bound; with ``profile`` one step under
+    torch.profiler and the optimizer yardstick."""
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import make_state
+    from repro_torch.optim import adamw_init
+
+    tag = "12b" if profile else "12c"
+    dev = torch.device("cuda", 0)
+    cfg = get_config(arch)
+    row = dict(arch=arch, card=card, batch=B, seq=S, steps=steps)
+    if profile:
+        row.update(_train_main(torch, tag, arch, B, S, steps))
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_state(cfg, 0, dev)
+    named = dict(model.named_parameters())
+    opt = adamw_init(named)
+    step = make_train_step(cfg, lr=1e-3, remat=True)
+    batches = [_pipeline_batch(torch, cfg, s, B, S, dev) for s in range(steps)]
+    ms, losses, gnorms = [], [], []
+    for b in batches:
+        t = time.perf_counter()
+        model, opt, m = step(model, opt, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        _fail(f"{tag} {arch}: losses {losses}, gnorms {gnorms}")
+    steady = sorted(ms[1:])
+    step_ms = steady[len(steady) // 2]
+    nparams = sum(p.numel() for p in model.parameters())
+    state_bytes = sum(p.numel() * (2 * p.element_size() + 12) for p in model.parameters())
+    bound = _train_bound(cfg, model, B, S)
+    row.update(params=nparams, step_ms=[round(x, 3) for x in ms], median_step_ms=round(step_ms, 3),
+               tok_s=round(B * S * 1e3 / step_ms, 1), max_memory_allocated=peak,
+               state_bytes=state_bytes, losses=losses, gnorms=gnorms, **bound)
+    print(f"{tag} {arch} at full width ({nparams / 1e9:.3f} G params, bf16 with a float32 "
+          f"master), batch {B} x {S}: step {step_ms:.3f} ms (median of steps 2-{steps}; "
+          f"{row['tok_s']} tok/s) against a bound of {bound['bound_ms']} ms "
+          f"({bound['bound_by']}: {bound['flops'] / 1e12:.2f} TFLOP at 989 TFLOP/s = "
+          f"{bound['flops_ms']} ms, optimizer {bound['opt_bytes'] / 1e9:.2f} GB at 3.35 TB/s = "
+          f"{bound['opt_bytes_ms']} ms); max_memory_allocated {peak / 2**30:.3f} GiB, "
+          f"training state {state_bytes / 2**30:.3f} GiB; losses "
+          f"{[round(x, 4) for x in losses]}, gnorms {[round(x, 4) for x in gnorms]}; "
+          f"[{card}]", flush=True)
+    if profile:
+        row["profile"] = _profile(torch, tag, "one train step",
+                                  lambda: step(model, opt, batches[-1]), step_ms, top=3)
+        row["adamw"] = _adamw_yardstick(torch, tag, model, opt)
+        a = row["adamw"]
+        print(f"{tag} adamw_update on {a['params'] / 1e9:.3f} G parameters: {a['adamw_ms']} ms, "
+              f"{a['adamw_launches']} launches, against a bound of {a['adamw_bound_ms']} ms "
+              f"({a['adamw_bytes'] / 1e9:.2f} GB); torch.optim.AdamW(fused=True) on the same "
+              f"float32 masters: {a['fused_adamw_ms']} ms, {a['fused_launches']} launches "
+              f"(bound {a['fused_bound_ms']} ms); [{card}]", flush=True)
+    print(f"{tag} {json.dumps(row)}", flush=True)
+    return row
+
+
+def check_layer_grads_full(torch, arch: str) -> float:
+    """The per-layer gate at full width: the first layer of ``arch`` (qwen:
+    attention and dense FFN; granite: attention and MoE; mamba2: Mamba-2)
+    in float32, the same weights, input and output cotangent on the card
+    and the CPU, batch 1 x 256: the worst relative L2 of its input and
+    parameter gradients must be at most ``LAYER_GRAD_REL_L2``."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Layer
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    mix, ffnk = cfg.layer_plan()[0]
+    gen = torch.Generator().manual_seed(0)
+    cpu = Layer(cfg, mix, ffnk, gen, "cpu")
+    card = copy.deepcopy(cpu).to("cuda")
+    x = torch.randn((1, 256, cfg.d_model), generator=gen)
+    ct = torch.randn((1, 256, cfg.d_model), generator=gen)
+    out = {}
+    for dev, layer in (("cpu", cpu), ("cuda", card)):
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        y, aux, _ = layer(xd, torch.arange(256, device=dev))
+        ((y * ct.to(dev)).sum() + 0.01 * aux).backward()
+        out[dev] = dict(x=xd.grad, **{k: p.grad for k, p in layer.named_parameters()})
+    worst = max(_rel_l2(out["cuda"][k], out["cpu"][k]) for k in out["cpu"])
+    print(f"12 gate {arch} layer 0 ({mix}, {ffnk}) at full width, float32, 1 x 256: input and "
+          f"{len(out['cpu']) - 1} parameter gradients card == cpu, worst relative L2 "
+          f"{worst:.3g} (limit {LAYER_GRAD_REL_L2})", flush=True)
+    if not worst <= LAYER_GRAD_REL_L2:
+        _fail(f"12 gate {arch}: layer gradients card vs cpu, relative L2 {worst} > "
+              f"{LAYER_GRAD_REL_L2}")
+    return worst
+
+
+def check_train_resume(torch, workdir: str) -> None:
+    """Phase 12d: qwen2.5-3b at smoke width on the card through
+    ``launch.train.main``: 12 steps straight, and 6 steps then
+    ``--resume`` to 12 from the step-5 checkpoint; the resumed losses must
+    equal the uninterrupted run's within rtol 1e-5."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    common = ["--arch", "qwen2.5-3b", "--smoke", "--batch", "4", "--seq", "32",
+              "--ckpt-every", "6"]
+    a, b = str(Path(workdir) / "a"), str(Path(workdir) / "b")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        full = train.main(common + ["--steps", "12", "--ckpt-dir", a])
+        train.main(common + ["--steps", "6", "--ckpt-dir", b])
+        resumed = train.main(common + ["--steps", "12", "--ckpt-dir", b, "--resume"])
+    if "[resume] restored step 5, continuing at 6" not in buf.getvalue():
+        _fail(f"12d: no resume line in {buf.getvalue()[-500:]}")
+    worst = max(abs(x - y) / abs(y) for x, y in zip(resumed, full[6:]))
+    print(f"12d resume at step 6 of 12 on the card: resumed losses == uninterrupted (max "
+          f"relative difference {worst:.3g}, limit 1e-05)", flush=True)
+    if len(resumed) != 6 or not worst <= 1e-5:
+        _fail(f"12d: resumed {resumed} vs uninterrupted {full[6:]}")
+
+
+def check_lm_training(torch, card: str) -> None:
+    """Phase 12: 12a every architecture at smoke width, card == CPU, with
+    the ``train_lm`` twin (12d) in its own process beside it, waited for
+    before the timed runs; 12b qwen2.5-3b at full width through
+    ``launch.train.main`` with the numbers, the profile and the optimizer
+    yardstick; 12c granite-moe-1b-a400m and mamba2-2.7b at full width; the
+    per-layer float32 gradient gate; 12d resume on the card."""
+    t0 = time.perf_counter()
+    twin = _start_twins(("train_lm",))
+    try:
+        check_train_smoke(torch)
+    except BaseException:
+        for p in twin.values():
+            p.kill()
+            p.wait()
+        raise
+    _wait_twins(twin, "12d", t0)
+    for arch, B, S, steps, prof in TRAIN_FULL:
+        train_full(torch, card, arch, B, S, steps, prof)
+        torch.cuda.empty_cache()
+    for arch, *_ in TRAIN_FULL:
+        check_layer_grads_full(torch, arch)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        check_train_resume(torch, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"12: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -2735,6 +3206,17 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     check_lm_serving(torch, card)
     print(f"phase 11: {time.perf_counter() - t:.1f} s", flush=True)
+
+    # ---- phase 12: LM training (this slice's path); it runs no
+    # hand-written kernel
+    t = time.perf_counter()
+    torch.cuda.synchronize()
+    lp_score_rows.launches = 0
+    check_lm_training(torch, card)
+    torch.cuda.synchronize()
+    print(f"phase 12: {time.perf_counter() - t:.1f} s; lp_score_rows launches "
+          f"{lp_score_rows.launches} (the training path runs no hand-written kernel)",
+          flush=True)
     kernels = [dict(
         name="lp_score_rows",
         route="cuda",

@@ -57,7 +57,10 @@ def _unflatten(like, it):
         out = {k: _unflatten(like[k], it) for k in sorted(like)}
         return {k: out[k] for k in like}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(v, it) for v in like)
+        children = [_unflatten(v, it) for v in like]
+        # a named tuple takes its fields as arguments, a list or tuple an
+        # iterable
+        return type(like)(*children) if hasattr(like, "_fields") else type(like)(children)
     return next(it)
 
 
@@ -66,8 +69,14 @@ def _map_leaves(fn, tree):
 
 
 def _to_host(x) -> np.ndarray:
+    """A leaf as a host numpy array.  A tensor is copied, also one on the
+    CPU, whose ``numpy()`` would alias it: its owner may write it in place
+    after an async submit.  A bfloat16 tensor goes as float32 (numpy has no
+    bfloat16, and float32 holds each of its values exactly) and comes back
+    in its template's dtype on restore."""
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
+        dt = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+        return x.detach().to("cpu", dtype=dt, copy=True).numpy()
     return np.asarray(x)
 
 

@@ -104,8 +104,12 @@ def _ssd_chunked(X, dt, A, Bm, Cm, h0, chunk: int, head_block: int = 8):
         Yi = []
         for h_lo in range(0, H, hb):                # intra-chunk, head-blocked
             csb = cs[:, :, h_lo:h_lo + hb]
-            M = torch.exp(csb[:, :, None, :] - csb[:, None, :, :])
-            M = torch.where(tri[None, :, :, None], M, 0.0)          # (B,Q,Q,hb)
+            # the exponent is masked before exp: above the diagonal it is
+            # positive and overflows to inf at long chunks, and the
+            # backward of a where() after exp multiplies that inf by 0
+            M = torch.exp(torch.where(tri[None, :, :, None],
+                                      csb[:, :, None, :] - csb[:, None, :, :],
+                                      float("-inf")))               # (B,Q,Q,hb)
             Xb = Xq[:, :, h_lo:h_lo + hb]
             sc = (CB[:, :, :, None] * M * dtq[:, None, :, h_lo:h_lo + hb]).to(Xb.dtype)
             Yi.append(torch.einsum("bqsh,bshp->bqhp", sc, Xb).float())

@@ -18,6 +18,7 @@ from typing import List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -131,29 +132,54 @@ def _embed_tokens(cfg, params: LM, tokens, prefix_embeds):
     return x
 
 
-def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
-            prefix_embeds: Optional[torch.Tensor] = None, collect_caches: bool = False):
-    """Returns (logits (B,S,V), aux, caches|None); caches are one dict per
-    layer."""
-    x = _embed_tokens(cfg, params, tokens, prefix_embeds)
-    positions = torch.arange(x.shape[1], device=x.device)
+def _run_layers(layers, x, positions, collect_caches: bool):
+    """(x, aux, caches) after ``layers`` in order."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
-    for layer in params.layers:
+    for layer in layers:
         x, a, c = layer(x, positions, return_cache=collect_caches)
         aux = aux + a
         caches.append(c)
+    return x, aux, caches
+
+
+def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
+            prefix_embeds: Optional[torch.Tensor] = None, remat: bool = True,
+            collect_caches: bool = False):
+    """Returns (logits (B,S,V), aux, caches|None); caches are one dict per
+    layer.  With ``remat`` each whole unit of ``cfg.scan_split()`` (its
+    ``len(unit)`` consecutive layers) is rematerialized in the backward
+    pass, as the reference checkpoints its scanned unit body; the
+    remainder layers are not."""
+    x = _embed_tokens(cfg, params, tokens, prefix_embeds)
+    positions = torch.arange(x.shape[1], device=x.device)
+    n_units, unit, _ = cfg.scan_split()
+    U = len(unit)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    caches = []
+    for u in range(n_units):
+        layers = params.layers[u * U:(u + 1) * U]
+        if remat:
+            x, a, c = checkpoint(_run_layers, layers, x, positions, collect_caches,
+                                 use_reentrant=False)
+        else:
+            x, a, c = _run_layers(layers, x, positions, collect_caches)
+        aux = aux + a
+        caches += c
+    x, a, c = _run_layers(params.layers[n_units * U:], x, positions, collect_caches)
+    aux = aux + a
+    caches += c
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     logits = x @ params.head()
     return logits, aux, caches if collect_caches else None
 
 
-def loss_fn(cfg: ArchConfig, params: LM, batch: dict):
+def loss_fn(cfg: ArchConfig, params: LM, batch: dict, *, remat: bool = True):
     """Next-token CE on the full-length forward, shifted on the label side,
     plus 0.01 x the MoE aux loss: (loss, {"ce", "aux"})."""
     tokens = batch["tokens"]
     prefix = batch.get("prefix_embeds")
-    logits, aux, _ = forward(cfg, params, tokens, prefix_embeds=prefix)
+    logits, aux, _ = forward(cfg, params, tokens, prefix_embeds=prefix, remat=remat)
     npfx = 0 if prefix is None else prefix.shape[1]
     if npfx:
         logits = logits[:, npfx:]
@@ -177,7 +203,7 @@ def prefill(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
     """Full-sequence forward that also emits per-layer caches; returns
     (last-position logits, caches)."""
     logits, _, caches = forward(cfg, params, tokens, prefix_embeds=prefix_embeds,
-                                collect_caches=True)
+                                remat=False, collect_caches=True)
     return logits[:, -1], caches
 
 

@@ -75,6 +75,7 @@ def test_entry_points_need_cuda_unless_told_otherwise():
     from repro_torch.core import LPEngine, PartitionerConfig, partition
     from repro_torch.graph import mesh2d
     from repro_torch.kernels.lp_score import node_scores
+    from repro_torch.launch.train import main as train_main
 
     g = mesh2d(8)
     cfg = PartitionerConfig(k=2, evo_engine="host")
@@ -84,6 +85,8 @@ def test_entry_points_need_cuda_unless_told_otherwise():
         LPEngine(g)
     with pytest.raises(RuntimeError, match="CUDA"):
         node_scores(g, np.zeros(g.n, np.int32), 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--smoke", "--steps", "1"])
     # asked for the CPU, the same call runs
     assert partition(g, cfg, device="cpu").feasible
 
@@ -91,9 +94,16 @@ def test_entry_points_need_cuda_unless_told_otherwise():
 def test_unported_options_raise():
     """Every engine of the reference is ported: an unknown engine or GA
     engine is an error, the distributed engine needs a PE count and runs
-    with one, and evo_engine="device" runs the batched GA."""
+    with one, and evo_engine="device" runs the batched GA.
+    ``launch.train.main`` trains on one device until the mesh slice: any
+    other --mesh raises."""
     from repro_torch.core import PartitionerConfig, partition
     from repro_torch.graph import mesh2d
+    from repro_torch.launch.train import main as train_main
+
+    for mesh in ("2x1", "1x4"):
+        with pytest.raises(ValueError, match="mesh"):
+            train_main(["--smoke", "--steps", "1", "--mesh", mesh, "--device", "cpu"])
 
     g = mesh2d(8)
     with pytest.raises(ValueError):

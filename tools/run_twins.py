@@ -6,7 +6,7 @@ Prints one line per twin (exit code, seconds, last line of its output)
 and then one JSON line with the card's name and power limit and every
 twin's exit code and seconds; exits non-zero if a twin failed:
 
-    python3 tools/run_twins.py                          # all ten, on the card
+    python3 tools/run_twins.py                          # all eleven, on the card
     python3 tools/run_twins.py partition_stream partition_dr --device cpu
 """
 
