@@ -103,7 +103,19 @@ Phases, each of which fails the run:
    mamba2-2.7b at full width, 4 steps; one full-width layer of each of the
    three in float32, its gradients card == CPU; (d) resume at step 6 of 12
    on the card equal to the uninterrupted run, and the ``train_lm`` twin
-   (beside 12a).
+   (beside 12a);
+13. the mesh and expert parallelism (``repro_torch.models.moe.moe_ep``,
+   ``repro_torch.models.sharding``, ``repro_torch.ckpt.elastic``), every
+   mesh coordinate on the one card: (a) ``moe_ep`` at smoke width in
+   float32 on a 2x4 mesh, card == CPU with the same drop sets at capacity
+   1.25 and 0.5 and == ``moe_dense`` at 8.0, and granite, dbrx and jamba
+   at a 2x2 mesh, the loss and gradients card == CPU; (b)
+   granite-moe-1b-a400m at full width through ``launch.train.main --mesh
+   2x2`` (2 steps), then 4 timed steps at 1x4, 2x2 and 1x1 (the dense MoE)
+   with each MoE layer's dropped share, one ``moe_ep`` call against its
+   bound and ``moe_dense``, and prefill and decode at 1x4; (c) the 2x2
+   run's train state saved and ``reshard_restore``d onto 1x4 and 4x1, every
+   shard bit for bit.
 Then one JSON line with each kernel's numbers and, last, the device line.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -2689,13 +2701,13 @@ def _pipeline_batch(torch, cfg, step: int, B: int, S: int, dev):
     return out
 
 
-def _loss_grads(cfg, model, batch):
+def _loss_grads(cfg, model, batch, mesh=None):
     """(loss, {name: gradient}) of ``loss_fn`` with remat, by autograd."""
     from repro_torch.models import loss_fn
 
     for p in model.parameters():
         p.grad = None
-    loss, _ = loss_fn(cfg, model, batch, remat=True)
+    loss, _ = loss_fn(cfg, model, batch, mesh=mesh, remat=True)
     loss.backward()
     grads = {k: p.grad for k, p in model.named_parameters()}
     for p in model.parameters():
@@ -2812,9 +2824,10 @@ def check_train_smoke(torch) -> None:
         _fail("12a: " + "; ".join(bad))
 
 
-def _train_main(torch, tag: str, arch: str, B: int, S: int, steps: int) -> dict:
-    """``repro_torch.launch.train.main`` at full width on the card, its
-    lines echoed under ``tag``: every loss and gnorm must be finite."""
+def _train_main(torch, tag: str, arch: str, B: int, S: int, steps: int, extra=()) -> dict:
+    """``repro_torch.launch.train.main`` at full width on the card (with
+    ``extra`` arguments), its lines echoed under ``tag``: every loss and
+    gnorm must be finite."""
     import contextlib
     import io
     import math
@@ -2827,7 +2840,7 @@ def _train_main(torch, tag: str, arch: str, B: int, S: int, steps: int) -> dict:
     t = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         losses = train.main(["--arch", arch, "--steps", str(steps), "--batch", str(B),
-                             "--seq", str(S), "--log-every", "1", "--seed", "0"])
+                             "--seq", str(S), "--log-every", "1", "--seed", "0", *extra])
     secs = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
     lines = buf.getvalue().splitlines()
@@ -3080,6 +3093,387 @@ def check_lm_training(torch, card: str) -> None:
     print(f"12: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# --------------------------------------------------------------------------
+# phase 13: the mesh and expert parallelism (repro_torch.models.moe.moe_ep,
+# repro_torch.models.sharding, repro_torch.launch.steps and launch.train
+# with a mesh, repro_torch.ckpt.elastic); every mesh coordinate sits on the
+# one card, so the all-to-alls are copies within it
+# --------------------------------------------------------------------------
+
+#: 13a: moe_ep card against CPU (the CPU tests' limit against the
+#: reference) and against moe_dense without drops (the reference's own)
+MOE_EP_TOL = 1e-5
+MOE_EP_DENSE_TOL = 2e-4
+#: 13b: granite-moe-1b-a400m at full width, batch 4 x 512, 4 steps per
+#: mesh; 1x1 is the dense MoE of phase 12c
+MESH_ARCH = "granite-moe-1b-a400m"
+MESH_TRAIN = ((1, 4), (2, 2), (1, 1))
+
+
+def _card_mesh(shape, dev="cuda"):
+    """A ("data", "model") mesh of ``shape`` with every coordinate on
+    ``dev``."""
+    from repro_torch.launch import make_mesh
+
+    return make_mesh(shape, ("data", "model"), [dev] * (shape[0] * shape[1]))
+
+
+def check_moe_ep_small(torch) -> None:
+    """Phase 13a, first half: ``moe_ep`` at smoke width in float32 on a
+    2x4 mesh of the card and of the CPU, the same weights, input and
+    cotangent: at capacity 8.0 nothing drops and the card equals
+    ``moe_dense`` within 2e-4; at 1.25 and 0.5 the drop sets are equal and
+    the output, aux and gradients within 1e-5."""
+    from repro_torch.models.moe import moe_dense, moe_ep
+
+    gen = torch.Generator().manual_seed(0)
+    E, D, F, K = 8, 32, 64, 2
+    p = {"router": torch.randn(D, E, generator=gen) * D ** -0.5,
+         "w_up": torch.randn(E, D, F, generator=gen) * D ** -0.5,
+         "w_gate": torch.randn(E, D, F, generator=gen) * D ** -0.5,
+         "w_down": torch.randn(E, F, D, generator=gen) * F ** -0.5}
+    x = torch.randn(4, 16, D, generator=gen)
+    ct = torch.randn(4, 16, D, generator=gen)
+    for cf in (8.0, 1.25, 0.5):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            pd = {k: v.to(dev, copy=True).requires_grad_(True) for k, v in p.items()}
+            xd = x.to(dev, copy=True).requires_grad_(True)
+            stats = {}
+            y, aux = moe_ep(pd, xd, mesh=_card_mesh((2, 4), dev), topk=K, n_experts=E,
+                            capacity_factor=cf, stats=stats)
+            ((y * ct.to(dev)).sum() + 0.37 * aux).backward()
+            out[dev] = dict(y=y.detach().cpu(), aux=aux.detach().cpu(), x=xd.grad.cpu(),
+                            keep=[k.cpu() for k in stats["keep"]], dropped=int(stats["dropped"]),
+                            **{k: v.grad.cpu() for k, v in pd.items()})
+        a, b = out["cpu"], out["cuda"]
+        same = len(a["keep"]) == len(b["keep"]) and all(
+            torch.equal(u, v) for u, v in zip(a["keep"], b["keep"]))
+        errs = {k: float((b[k] - a[k]).abs().max()) for k in ("y", "aux", "x", *p)}
+        line = (f"13a moe_ep 2x4, capacity {cf}: {b['dropped']} of {4 * 16 * K} assignments "
+                f"dropped on the card, {a['dropped']} on the cpu, drop sets "
+                f"{'equal' if same else 'DIFFER'}; max |card - cpu| " +
+                ", ".join(f"{k} {v:.3g}" for k, v in errs.items()))
+        if cf == 8.0:
+            dense, _ = moe_dense({k: v.cuda() for k, v in p.items()}, x.cuda(), topk=K)
+            e_dense = float((b["y"] - dense.cpu()).abs().max())
+            line += f"; card == moe_dense within {e_dense:.3g} (limit {MOE_EP_DENSE_TOL})"
+            if b["dropped"] or not e_dense < MOE_EP_DENSE_TOL:
+                _fail(f"13a moe_ep against moe_dense: {b['dropped']} dropped, {e_dense}")
+        print(line, flush=True)
+        if not same or not all(torch.allclose(b[k], a[k], rtol=MOE_EP_TOL, atol=MOE_EP_TOL)
+                               for k in errs):
+            _fail(f"13a moe_ep capacity {cf}: card != cpu ({errs}, drop sets equal {same})")
+
+
+def check_mesh_model_small(torch) -> None:
+    """Phase 13a, second half: granite, dbrx and jamba at smoke width in
+    float32 at a 2x2 mesh (every MoE layer through ``moe_ep``), the same
+    weights and batch on the card and the CPU: the loss and every gradient
+    leaf within phase 12a's limits."""
+    import copy
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_params
+
+    for arch in ("granite-moe-1b-a400m", "dbrx-132b", "jamba-1.5-large-398b"):
+        cfg = ARCHS[arch].smoke()
+        tol = GRAD_REL_L2_JAMBA if arch.startswith("jamba") else GRAD_REL_L2
+        cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        card = copy.deepcopy(cpu).to("cuda")
+        l0, g0 = _loss_grads(cfg, cpu, _pipeline_batch(torch, cfg, 0, 2, 24, "cpu"),
+                             _card_mesh((2, 2), "cpu"))
+        l1, g1 = _loss_grads(cfg, card, _pipeline_batch(torch, cfg, 0, 2, 24, "cuda"),
+                             _card_mesh((2, 2)))
+        drops = [int(layer.moe.dispatch["dropped"]) for layer in card.layers
+                 if hasattr(layer, "moe")]
+        e_loss = abs(float(l1) - float(l0)) / abs(float(l0))
+        e_grad = max(_rel_l2(g1[k], g0[k]) for k in g0)
+        print(f"13a {arch} at mesh 2x2: loss_fn and its gradients card == cpu (loss "
+              f"{e_loss:.3g}, worst gradient leaf {e_grad:.3g}, limit {tol}); assignments "
+              f"dropped per MoE layer {drops}", flush=True)
+        if not (e_loss <= TRAIN_LOSS_RTOL and e_grad <= tol):
+            _fail(f"13a {arch} at mesh 2x2: loss {e_loss}, worst gradient leaf {e_grad}")
+
+
+def _dropped_share(model) -> list:
+    """Each MoE layer's dropped share of its assignments in its last
+    ``moe_ep`` call."""
+    return [round(float(m.dispatch["dropped"]) / m.dispatch["assignments"], 5)
+            for m in (layer.moe for layer in model.layers if hasattr(layer, "moe"))
+            if m.dispatch]
+
+
+def _moe_ep_bound(cfg, kept: int, T: int) -> dict:
+    """The least time of one ``moe_ep`` forward: the routed assignments'
+    expert FLOPs (three (D, F) products of 2 FLOPs a weight per kept
+    assignment) at the bf16 rate, or its bytes (the expert weights and the
+    router read once, the tokens read and written once), the larger."""
+    D, F, E = cfg.d_model, cfg.moe.d_ff, cfg.moe.n_experts
+    flops = 2 * 3 * D * F * kept
+    nbytes = 3 * E * D * F * 2 + D * E * 4 + 2 * T * D * 2
+    f_ms, b_ms = flops / PEAK_BF16_FLOPS_PER_S * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return dict(flops=flops, bytes=nbytes, bound_ms=round(max(f_ms, b_ms), 4),
+                bound_by="operations" if f_ms >= b_ms else "bytes")
+
+
+def time_moe_ep(torch, card: str, model, cfg, mesh, B: int, S: int) -> dict:
+    """One ``moe_ep`` forward at the main path's shapes (layer 0's MoE, an
+    input of ``B`` x ``S`` in its dtype) on ``mesh``: CUDA-event ms, one call under
+    the profiler (its launches), forward plus backward ms, ``moe_dense``
+    on the same input (the plain version), the bound of the kept
+    assignments."""
+    from repro_torch.models.moe import moe_dense
+
+    moe = model.layers[0].moe
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda", dtype=moe["w_up"].dtype)
+    with torch.no_grad():
+        fwd = lambda: moe(x, mesh)
+        ms = _time_ms(fwd, torch, warmup=2, batches=3, reps=5)
+        prof = _profile(torch, "13b", "one moe_ep forward", fwd, ms, top=3)
+        kept = moe.dispatch["assignments"] - int(moe.dispatch["dropped"])
+        dense = lambda: moe_dense(moe, x, topk=moe.topk, glu=moe.glu, act=moe.act)
+        dense_ms = _time_ms(dense, torch, warmup=2, batches=3, reps=5)
+    xg = x.clone().requires_grad_(True)
+
+    def fwd_bwd():
+        y, aux = moe(xg, mesh)
+        (y.float().square().mean() + aux).backward()
+
+    fb_ms = _time_ms(fwd_bwd, torch, warmup=1, batches=3, reps=3)
+    for p in moe.parameters():
+        p.grad = None
+    row = dict(mesh=list(mesh.shape.values()), ms=round(ms, 4), fwd_bwd_ms=round(fb_ms, 4),
+               launches=prof.get("launches"), plain_dense_ms=round(dense_ms, 4), kept=kept,
+               assignments=moe.dispatch["assignments"], **_moe_ep_bound(cfg, kept, B * S))
+    print(f"13b moe_ep forward, layer 0, {B} x {S} on mesh {row['mesh']}: {ms:.4f} ms, "
+          f"{row['launches']} launches (forward and backward {fb_ms:.4f} ms) against a bound "
+          f"of {row['bound_ms']} ms ({row['bound_by']}: {kept} kept assignments, "
+          f"{row['flops'] / 1e9:.2f} GFLOP, {row['bytes'] / 1e6:.1f} MB); moe_dense on the "
+          f"same input {dense_ms:.4f} ms; [{card}]", flush=True)
+    return row
+
+
+def train_mesh(torch, card: str, shape, B: int = 4, S: int = 512, steps: int = 4):
+    """Phase 13b: granite-moe-1b-a400m at full width in bf16 with a float32
+    master on a ``shape`` mesh of the card (1x1: the dense MoE), seed 0,
+    lr 1e-3, the pipeline's batches: each step timed on the host clock to
+    a synchronize, the median over steps 2 on, tok/s,
+    ``max_memory_allocated``, each MoE layer's dropped share, every loss
+    and gnorm finite.  Returns (row, model, optimizer state)."""
+    import math
+
+    import repro_torch.models.moe as PMOE
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import make_state
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(MESH_ARCH)
+    mesh = _card_mesh(shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    model = make_state(cfg, 0, torch.device("cuda", 0))
+    opt = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(cfg, mesh, lr=1e-3, remat=True)
+    batches = [_pipeline_batch(torch, cfg, s, B, S, "cuda") for s in range(steps)]
+    ms, losses, gnorms, shares = [], [], [], []
+    real, calls = PMOE.moe_ep, []
+    PMOE.moe_ep = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        for b in batches:
+            calls.clear()
+            t = time.perf_counter()
+            model, opt, m = step(model, opt, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["gnorm"]))
+            shares.append(_dropped_share(model))
+    finally:
+        PMOE.moe_ep = real
+    peak = torch.cuda.max_memory_allocated()
+    tag = f"13b mesh {shape[0]}x{shape[1]}"
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        _fail(f"{tag}: losses {losses}, gnorms {gnorms}")
+    if shape[1] > 1 and len(shares[-1]) != cfg.n_layers:
+        _fail(f"{tag}: {len(shares[-1])} MoE layers went through moe_ep")
+    steady = sorted(ms[1:])
+    step_ms = steady[len(steady) // 2]
+    flat = [x for s_ in shares for x in s_]
+    row = dict(arch=MESH_ARCH, card=card, mesh=list(shape), batch=B, seq=S,
+               step_ms=[round(x, 3) for x in ms], median_step_ms=round(step_ms, 3),
+               tok_s=round(B * S * 1e3 / step_ms, 1), max_memory_allocated=peak,
+               losses=losses, gnorms=gnorms, moe_ep_calls_per_step=len(calls),
+               dropped_share_last_step=shares[-1],
+               dropped_share_mean=round(sum(flat) / len(flat), 5) if flat else None)
+    print(f"{tag}: step {step_ms:.3f} ms (median of steps 2-{steps}; {row['tok_s']} tok/s), "
+          f"{len(calls)} moe_ep calls a step, max_memory_allocated {peak / 2**30:.3f} GiB; "
+          f"losses {[round(x, 4) for x in losses]}, gnorms {[round(x, 4) for x in gnorms]}; "
+          f"dropped share per layer (last step) {shares[-1]}, mean over steps and layers "
+          f"{row['dropped_share_mean']}; [{card}]", flush=True)
+    return row, model, opt
+
+
+def serve_mesh(torch, card: str, model, B: int = 4, S: int = 256, new: int = 32) -> dict:
+    """Phase 13b: prefill ``B`` x ``S`` and ``new`` greedy decode steps of
+    the trained granite on a 1x4 mesh of the card through ``make_prefill``
+    and ``make_decode_step`` (decode replicates its one token per row over
+    the model axis); prefill s, decode ms a step (host clock to a
+    synchronize), finite logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import pad_caches
+    from repro_torch.launch.steps import make_decode_step, make_prefill
+
+    cfg = get_config(MESH_ARCH)
+    mesh = _card_mesh((1, 4))
+    batch = _pipeline_batch(torch, cfg, 0, B, S, "cuda")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    last, caches = make_prefill(cfg, mesh)(model, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    caches = pad_caches(cfg, caches, S, S + new)
+    decode = make_decode_step(cfg, mesh)
+    tok, ms, finite = last.argmax(-1), [], bool(torch.isfinite(last).all())
+    for i in range(new):
+        t = time.perf_counter()
+        lg, caches = decode(model, tok, caches, S + i)
+        tok = lg.argmax(-1)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        finite = finite and bool(torch.isfinite(lg).all())
+    dec_ms = sorted(ms[1:])[len(ms) // 2]
+    drops = _dropped_share(model)
+    print(f"13b serve at mesh 1x4 ({B} x {S}, {new} tokens): prefill {prefill_s:.4f} s, decode "
+          f"{dec_ms:.3f} ms a step (median of steps 2-{new}), logits finite {finite}; the last "
+          f"decode step's dropped share per layer {drops}; [{card}]", flush=True)
+    if not finite:
+        _fail("13b serve at mesh 1x4: non-finite logits")
+    return dict(prefill_s=round(prefill_s, 4), decode_ms=round(dec_ms, 3))
+
+
+def check_elastic(torch, card: str, model, opt, workdir: str) -> dict:
+    """Phase 13c: the 2x2 run's train state (parameters and AdamW) saved
+    once, then ``reshard_restore``d onto 1x4 and 4x1 meshes of the card:
+    every shard equals its block of the saved tensor bit for bit and
+    ``full()`` the saved tensor; seconds and peak memory of each."""
+    from repro_torch.ckpt import reshard_restore, save
+    from repro_torch.ckpt.checkpoint import _leaves
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import state_specs
+    from repro_torch.models.sharding import P
+    from repro_torch.optim import AdamWState
+
+    cfg = get_config(MESH_ARCH)
+    named = dict(model.named_parameters())
+    t = time.perf_counter()
+    save(workdir, 0, (named, opt), {"step": 0})
+    save_s = time.perf_counter() - t
+    nbytes = sum((Path(workdir) / "step_00000000" / f).stat().st_size
+                 for f in ("arrays.npz", "manifest.json"))
+    # the saved tensors are the live ones on the card (the checkpoint holds
+    # bf16 as float32, which is exact)
+    saved = _leaves((named, opt))
+    out = dict(save_s=round(save_s, 3), checkpoint_bytes=nbytes)
+    for shape in ((1, 4), (4, 1)):
+        mesh = _card_mesh(shape)
+        ap, ao, psh, _ = state_specs(cfg, mesh, False)
+        specs = {k: sh.spec for k, sh in psh.items()}
+        like = (dict(ap.named_parameters()), ao)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        (params, st), _ = reshard_restore(
+            workdir, 0, like, (specs, AdamWState(step=P(), mu=specs, nu=specs, master=specs)),
+            mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        order = _leaves((params, st))            # the checkpoint's leaf order
+        if len(order) != len(saved):
+            _fail(f"13c: {len(order)} restored leaves, {len(saved)} saved")
+        bad, n_shards = [], 0
+        for want, x in zip(saved, order):
+            if want.dtype != x.dtype:
+                bad.append((tuple(x.shape), "dtype"))
+            n_shards += len(x.shards)
+            for c, shard in x.shards.items():
+                if not torch.equal(shard, want[x.sharding.index(c, x.shape)]):
+                    bad.append((tuple(x.shape), c))
+            if not torch.equal(x.full(), want):
+                bad.append((tuple(x.shape), "full"))
+        del order, params, st
+        torch.cuda.empty_cache()
+        split = sum(1 for k, s_ in specs.items() if any(e is not None for e in s_))
+        out[f"{shape[0]}x{shape[1]}"] = dict(restore_s=round(secs, 3), peak_bytes=peak,
+                                             before_bytes=before, shards=n_shards, bad=len(bad))
+        print(f"13c reshard_restore onto mesh {shape[0]}x{shape[1]}: {secs:.3f} s, peak "
+              f"memory {peak / 2**30:.3f} GiB ({before / 2**30:.3f} GiB of it the live train "
+              f"state), {n_shards} shards of {len(saved)} tensors "
+              f"({split} of {len(specs)} parameters split) == their blocks of the saved "
+              f"tensors bit for bit, full() == saved: {not bad}; [{card}]", flush=True)
+        if bad:
+            _fail(f"13c {shape}: shards differ from the saved tensors: {bad[:5]}")
+    print(f"13c saved the 2x2 run's state in {save_s:.3f} s ({nbytes / 1e9:.3f} GB)",
+          flush=True)
+    return out
+
+
+def check_mesh(torch, card: str) -> None:
+    """Phase 13: 13a at smoke width, card == CPU; 13b granite at full width
+    through ``launch.train.main --mesh 2x2`` (2 steps), then the timed
+    runs at 1x4, 2x2 and 1x1 (the dense MoE), one ``moe_ep`` call's
+    numbers and serving at 1x4; 13c the elastic restore of the 2x2
+    state."""
+    import repro_torch.models.moe as PMOE
+
+    t0 = time.perf_counter()
+    check_moe_ep_small(torch)
+    check_mesh_model_small(torch)
+    print(f"13a: {time.perf_counter() - t0:.1f} s", flush=True)
+    calls = []
+    real = PMOE.moe_ep
+    PMOE.moe_ep = lambda *a, **k: calls.append(1) or real(*a, **k)
+    try:
+        main = _train_main(torch, "13b main", MESH_ARCH, 4, 512, 2, ("--mesh", "2x2"))
+    finally:
+        PMOE.moe_ep = real
+    print(f"13b launch.train.main --mesh 2x2: {len(calls)} moe_ep calls over 2 steps, "
+          f"max_memory_allocated {main['main_peak_bytes'] / 2**30:.3f} GiB", flush=True)
+    if not calls:
+        _fail("13b: launch.train.main --mesh 2x2 never ran moe_ep")
+    torch.cuda.empty_cache()
+    rows = {}
+    for shape in MESH_TRAIN:
+        row, model, opt = train_mesh(torch, card, shape)
+        rows[shape] = row
+        if shape == (1, 4):
+            from repro_torch.configs import get_config
+
+            row["moe_ep"] = time_moe_ep(torch, card, model, get_config(MESH_ARCH),
+                                        _card_mesh(shape), 4, 512)
+            row["serve"] = serve_mesh(torch, card, model)
+        if shape == (2, 2):
+            workdir = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+            try:
+                row["elastic"] = check_elastic(torch, card, model, opt, workdir)
+            finally:
+                shutil.rmtree(workdir, ignore_errors=True)
+        del model, opt
+        torch.cuda.empty_cache()
+    dense = rows[(1, 1)]["median_step_ms"]
+    print("13b steps (ms, median): " + ", ".join(
+        f"{a}x{b} {r['median_step_ms']} ({r['median_step_ms'] / dense:.3f}x the dense 1x1)"
+        for (a, b), r in rows.items()) + f"; [{card}]", flush=True)
+    for (a, b), r in rows.items():
+        print(f"13b {json.dumps(r)}", flush=True)
+    print(f"13: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=int, default=19)
@@ -3217,6 +3611,16 @@ def main(argv=None) -> int:
     print(f"phase 12: {time.perf_counter() - t:.1f} s; lp_score_rows launches "
           f"{lp_score_rows.launches} (the training path runs no hand-written kernel)",
           flush=True)
+
+    # ---- phase 13: the mesh and expert parallelism (this slice's path); it
+    # runs no hand-written kernel
+    t = time.perf_counter()
+    torch.cuda.synchronize()
+    lp_score_rows.launches = 0
+    check_mesh(torch, card)
+    torch.cuda.synchronize()
+    print(f"phase 13: {time.perf_counter() - t:.1f} s; lp_score_rows launches "
+          f"{lp_score_rows.launches} (the mesh path runs no hand-written kernel)", flush=True)
     kernels = [dict(
         name="lp_score_rows",
         route="cuda",

@@ -1,8 +1,8 @@
-"""Checkpointing of the port (the torch twin of ``repro.ckpt``).  The
-elastic reshard (``reshard_restore``, ``shardings_for``) comes with the
-mesh and expert parallelism of the LM scaffolding (``ROADMAP.md``, Queue 1
-item 4c)."""
+"""Checkpointing of the port (the torch twin of ``repro.ckpt``): atomic
+save and restore, and the elastic reshard onto any mesh."""
 
 from .checkpoint import AsyncCheckpointer, latest_step, load, restore, save
+from .elastic import reshard_restore, shardings_for
 
-__all__ = ["save", "restore", "load", "latest_step", "AsyncCheckpointer"]
+__all__ = ["save", "restore", "load", "latest_step", "AsyncCheckpointer",
+           "reshard_restore", "shardings_for"]

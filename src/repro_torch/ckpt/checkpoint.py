@@ -17,8 +17,9 @@ loop, bounding checkpoint stalls to an enqueue.
 Trees are nested dicts, lists and tuples; every other object is a leaf
 (a torch tensor, a numpy array or a scalar).  Leaves are flattened in the
 reference's order: dict entries by sorted key, lists and tuples in order,
-``None`` holds no leaf.  The mesh-aware restore (``shardings=``) and the
-elastic reshard of the reference wait for the port's distributed path.
+``None`` holds no leaf.  ``restore(..., shardings=)`` places each leaf on
+a mesh (a ``models.sharding.ShardedTensor``: one shard per coordinate on
+its device), which the elastic reshard (``ckpt.elastic``) builds on.
 """
 
 from __future__ import annotations
@@ -187,10 +188,14 @@ def _like_leaf(h: np.ndarray, like):
     return h.astype(np.asarray(like).dtype)
 
 
-def restore(path: str, step: int, like: Any):
+def restore(path: str, step: int, like: Any, shardings: Any = None):
     """Load a checkpoint into the structure of ``like`` (shapes checked);
     returns ``(tree, extra)``.  Tensor leaves of ``like`` come back as
-    tensors of its dtype on its device, other leaves as numpy arrays."""
+    tensors of its dtype on its device, other leaves as numpy arrays.
+    ``shardings``: an optional tree of ``NamedSharding`` shaped like
+    ``like``; each leaf then comes back placed on its mesh, a
+    ``ShardedTensor`` in its template's dtype (``like`` may live on the
+    ``meta`` device)."""
     d = os.path.join(path, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -203,7 +208,12 @@ def restore(path: str, step: int, like: Any):
     for h, l in zip(host, leaves):
         if tuple(h.shape) != tuple(np.shape(l)):
             raise ValueError(f"leaf shape {h.shape} vs template {np.shape(l)}")
-    out = [_like_leaf(h, l) for h, l in zip(host, leaves)]
+    if shardings is not None:
+        out = [s.place(torch.from_numpy(h), l.dtype) if isinstance(l, torch.Tensor)
+               else s.place(torch.from_numpy(h.astype(np.asarray(l).dtype)))
+               for h, l, s in zip(host, leaves, _leaves(shardings))]
+    else:
+        out = [_like_leaf(h, l) for h, l in zip(host, leaves)]
     return _unflatten(like, iter(out)), manifest["extra"]
 
 

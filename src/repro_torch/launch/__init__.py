@@ -1,3 +1,3 @@
-from .mesh import make_mesh
+from .mesh import make_mesh, make_production_mesh
 
-__all__ = ["make_mesh"]
+__all__ = ["make_mesh", "make_production_mesh"]

@@ -1,10 +1,14 @@
 """The train, prefill and decode steps of the port (the torch twin of
-``repro.launch.steps``) and the abstract state they run on.
+``repro.launch.steps``), the abstract state they run on and its shardings.
 
 The reference builds these for a mesh and jits them with explicit
-shardings; the port runs them eagerly on one device.  The mesh specs
-(``state_specs``, ``norm_spec``) come with the mesh slice (``ROADMAP.md``,
-Queue 1 item 4c) and the dry-run's ``input_specs`` with item 4d.
+shardings; the port runs them eagerly, with the parameters and optimizer
+state whole on one device, as the reference's own ``launch.train``
+leaves them (its jit takes no shardings).  The mesh reaches the model,
+whose MoE layers then run ``moe_ep`` over it.  ``state_specs`` gives the shardings
+the reference would place the state with (``NamedSharding`` of
+``models.sharding``); the dry-run's ``input_specs`` and the ``compile_*``
+builders come with ``ROADMAP.md``, Queue 1 item 4d.
 """
 
 from __future__ import annotations
@@ -16,11 +20,28 @@ import torch
 from ..configs.base import ArchConfig
 from ..models.convert import reference_leaves
 from ..models.model import LM, decode_step, loss_fn, prefill
-from ..optim.adamw import adamw_init, adamw_update
+from ..models.sharding import P, NamedSharding, param_pspecs
+from ..optim.adamw import AdamWState, adamw_init, adamw_update
 from ..optim.compression import compress_decompress
 
-__all__ = ["make_train_step", "make_prefill", "make_decode_step", "abstract_params",
-           "abstract_opt"]
+__all__ = ["state_specs", "norm_spec", "make_train_step", "make_prefill",
+           "make_decode_step", "abstract_params", "abstract_opt"]
+
+
+def norm_spec(spec: P, shape, mesh) -> P:
+    """Drop sharding on axes that don't divide the dimension (and entries
+    past the tensor's rank)."""
+    parts = []
+    for i, ax in enumerate(spec):
+        if ax is None or i >= len(shape):
+            parts.append(None)
+            continue
+        size = 1
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            size *= mesh.shape[a]
+        parts.append(ax if shape[i] % size == 0 else None)
+    parts += [None] * (len(shape) - len(parts))
+    return P(*parts)
 
 
 def abstract_params(cfg: ArchConfig) -> LM:
@@ -37,15 +58,31 @@ def abstract_opt(aparams):
     return adamw_init(aparams)
 
 
-def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, remat: bool = True,
-                    compress_grads: bool = False):
+def state_specs(cfg: ArchConfig, mesh, multi_pod: bool):
+    """(abstract params, abstract opt, param shardings, opt shardings):
+    the ``meta``-device ``LM`` and optimizer state, and name ->
+    ``NamedSharding`` of ``param_pspecs`` with the axes that do not divide
+    dropped (``norm_spec``); the optimizer's moments and master share the
+    parameters' and its step is replicated."""
+    ap = abstract_params(cfg)
+    specs = param_pspecs(ap, multi_pod)
+    psh = {k: NamedSharding(mesh, norm_spec(specs[k], p.shape, mesh))
+           for k, p in ap.named_parameters()}
+    ao = abstract_opt(ap)
+    osh = AdamWState(step=NamedSharding(mesh, P()), mu=psh, nu=psh, master=psh)
+    return ap, ao, psh, osh
+
+
+def make_train_step(cfg: ArchConfig, mesh=None, *, multi_pod: bool = False, lr: float = 3e-4,
+                    remat: bool = True, compress_grads: bool = False):
     """``train_step(params, opt, batch) -> (params, opt, {"loss", "ce",
     "gnorm"})``: the loss and its gradients by autograd, int8 error-feedback
     compression of the gradients when ``compress_grads`` (``opt`` is then
     ``(AdamWState, residuals)``; one scale per reference leaf, so the
     layers of a scanned unit position share theirs), and one AdamW step.
     ``params`` is the ``LM``; it and the optimizer state are updated in
-    place (the reference donates both to its jitted step) and returned."""
+    place (the reference donates both to its jitted step) and returned.
+    ``mesh`` (None: no mesh) and ``multi_pod`` go to ``loss_fn``."""
 
     groups = reference_leaves(cfg) if compress_grads else None
 
@@ -55,7 +92,8 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, remat: bool = True,
         named = dict(params.named_parameters())
         for p in named.values():
             p.grad = None
-        loss, metrics = loss_fn(cfg, params, batch, remat=remat)
+        loss, metrics = loss_fn(cfg, params, batch, mesh=mesh, multi_pod=multi_pod,
+                                remat=remat)
         loss.backward()
         grads = {k: p.grad for k, p in named.items()}
         for p in named.values():
@@ -71,20 +109,21 @@ def make_train_step(cfg: ArchConfig, *, lr: float = 3e-4, remat: bool = True,
     return train_step
 
 
-def make_prefill(cfg: ArchConfig):
+def make_prefill(cfg: ArchConfig, mesh=None, *, multi_pod: bool = False):
     """``prefill_step(params, batch) -> (last-position logits, caches)``."""
 
     def prefill_step(params: LM, batch):
-        return prefill(cfg, params, batch["tokens"], prefix_embeds=batch.get("prefix_embeds"))
+        return prefill(cfg, params, batch["tokens"], mesh=mesh, multi_pod=multi_pod,
+                       prefix_embeds=batch.get("prefix_embeds"))
 
     return prefill_step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, mesh=None, *, multi_pod: bool = False):
     """``serve_step(params, token, caches, pos) -> (logits, caches)``; the
     attention caches are written in place, as the reference donates them."""
 
     def serve_step(params: LM, token, caches, pos):
-        return decode_step(cfg, params, token, caches, pos)
+        return decode_step(cfg, params, token, caches, pos, mesh=mesh, multi_pod=multi_pod)
 
     return serve_step

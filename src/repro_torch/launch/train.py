@@ -11,8 +11,13 @@ Fault tolerance: the data pipeline is deterministic-by-step and checkpoints
 store (params, opt, step); ``--resume`` restarts from the last COMPLETE step
 and replays the exact stream — killing the process at any point loses at
 most ``ckpt_every`` steps.  The checkpoint tree is ``({name: parameter},
-opt)``.  Only the 1x1 mesh runs until the mesh slice (``ROADMAP.md``,
-Queue 1 item 4c).
+opt)``; on a different mesh shape, elastic restore re-places the same
+tensors (``repro_torch.ckpt.elastic``).
+
+``--mesh DxM`` builds a ("data", "model") mesh over ``[--device] * (D*M)``,
+else over every visible card cyclically; the parameters and optimizer
+state stay whole on its first device, as the reference's ``launch.train``
+leaves them, and with M > 1 the MoE layers run ``moe_ep`` over it.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..data import TokenPipeline
 from ..device import resolve_device
 from ..models.model import LM, init_params
 from ..optim import adamw_init, ef_init
+from .mesh import make_mesh
 from .steps import make_train_step
 
 __all__ = ["make_state", "main"]
@@ -50,7 +56,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=1e-3)
-    ap.add_argument("--mesh", default="1x1", help="only 1x1 until the mesh slice")
+    ap.add_argument("--mesh", default="1x1", help="e.g. 2x4 => data=2,model=4")
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -60,9 +66,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="default: the card")
     args = ap.parse_args(argv)
 
-    if tuple(int(x) for x in args.mesh.split("x")) != (1, 1):
-        raise ValueError(f"--mesh {args.mesh}: the port trains on one device until the "
-                         "mesh slice (ROADMAP.md, Queue 1 item 4c)")
     if args.arch == "mini-lm":
         from ..configs.mini_lm import MINI_LM
 
@@ -71,13 +74,16 @@ def main(argv=None):
         cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    dev = resolve_device(args.device)
+    d, m = (int(x) for x in args.mesh.split("x"))
+    devices = None if args.device is None else [resolve_device(args.device)] * (d * m)
+    mesh = make_mesh((d, m), ("data", "model"), devices)
+    dev = mesh.device((0, 0))
 
     pipe = TokenPipeline(
         vocab=cfg.vocab, batch=args.batch, seq=args.seq, seed=args.seed,
         n_prefix=cfg.n_prefix, d_model=cfg.d_model,
     )
-    train_step = make_train_step(cfg, lr=args.lr, remat=True,
+    train_step = make_train_step(cfg, mesh, multi_pod=False, lr=args.lr, remat=True,
                                  compress_grads=args.compress_grads)
 
     model = make_state(cfg, args.seed, dev)

@@ -10,6 +10,12 @@ the remainder; the port holds one flat list of layers in
 The modality frontends of the [audio]/[vlm] entries are stubs, as in the
 reference: ``prefix_embeds`` are concatenated in front of the token
 embeddings.
+
+``mesh`` and ``multi_pod`` are the reference's: with a mesh whose model
+axis is larger than 1 every MoE FFN runs ``moe_ep`` over it (tokens past
+an expert's capacity are dropped, so the values differ from the dense
+MoE's); everything else the mesh touches is placement, which leaves the
+values alone (``sharding.wsc``).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from ..device import resolve_device
 from .layers import FFN, Attention, normal, rmsnorm
 from .mamba2 import Mamba2, init_mamba_cache
 from .moe import MoE
+from .sharding import P, act_specs, wsc
 
 __all__ = ["init_params", "forward", "loss_fn", "prefill", "decode_step", "init_caches",
            "LM", "Layer"]
@@ -60,26 +67,27 @@ class Layer(nn.Module):
         elif ffnk != "none":
             raise ValueError(ffnk)
 
-    def _ffn(self, x):
+    def _ffn(self, x, mesh=None, multi_pod=False):
         if self.ffnk == "none":
             return x * 0.0, 0.0
         h = rmsnorm(x, self.ffn_norm, self.eps)
         if self.ffnk == "dense":
             return self.ffn(h), 0.0
-        return self.moe(h)
+        return self.moe(h, mesh, multi_pod)
 
-    def forward(self, x, positions, return_cache=False):
-        """(x, aux, cache): the layer over a whole sequence."""
+    def forward(self, x, positions, return_cache=False, mesh=None, multi_pod=False):
+        """(x, aux, cache): the layer over a whole sequence; a MoE FFN runs
+        ``moe_ep`` over a ``mesh`` whose model axis is larger than 1."""
         h = rmsnorm(x, self.mix_norm, self.eps)
         if self.mix == "mamba":
             y, cache = self.mamba(h, return_cache=return_cache)
         else:
             y, cache = self.attn(h, positions=positions, return_cache=return_cache)
         x = x + y
-        y2, aux = self._ffn(x)
+        y2, aux = self._ffn(x, mesh, multi_pod)
         return x + y2, aux, cache
 
-    def decode(self, x, cache, pos: int):
+    def decode(self, x, cache, pos: int, mesh=None, multi_pod=False):
         """(x, cache): one token at position ``pos`` against the layer's cache."""
         h = rmsnorm(x, self.mix_norm, self.eps)
         if self.mix == "mamba":
@@ -87,7 +95,7 @@ class Layer(nn.Module):
         else:
             y, cache = self.attn.decode(h, cache, pos)
         x = x + y
-        y2, _ = self._ffn(x)
+        y2, _ = self._ffn(x, mesh, multi_pod)
         return x + y2, cache
 
 
@@ -132,26 +140,30 @@ def _embed_tokens(cfg, params: LM, tokens, prefix_embeds):
     return x
 
 
-def _run_layers(layers, x, positions, collect_caches: bool):
+def _run_layers(layers, x, positions, collect_caches: bool, mesh, multi_pod):
     """(x, aux, caches) after ``layers`` in order."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
+    hidden = act_specs(multi_pod)["hidden"]
     for layer in layers:
-        x, a, c = layer(x, positions, return_cache=collect_caches)
+        x, a, c = layer(x, positions, return_cache=collect_caches, mesh=mesh,
+                        multi_pod=multi_pod)
+        x = wsc(x, hidden, mesh)
         aux = aux + a
         caches.append(c)
     return x, aux, caches
 
 
-def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
-            prefix_embeds: Optional[torch.Tensor] = None, remat: bool = True,
-            collect_caches: bool = False):
+def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *, mesh=None,
+            multi_pod: bool = False, prefix_embeds: Optional[torch.Tensor] = None,
+            remat: bool = True, collect_caches: bool = False):
     """Returns (logits (B,S,V), aux, caches|None); caches are one dict per
     layer.  With ``remat`` each whole unit of ``cfg.scan_split()`` (its
     ``len(unit)`` consecutive layers) is rematerialized in the backward
     pass, as the reference checkpoints its scanned unit body; the
     remainder layers are not."""
-    x = _embed_tokens(cfg, params, tokens, prefix_embeds)
+    sp = act_specs(multi_pod)
+    x = wsc(_embed_tokens(cfg, params, tokens, prefix_embeds), sp["hidden"], mesh)
     positions = torch.arange(x.shape[1], device=x.device)
     n_units, unit, _ = cfg.scan_split()
     U = len(unit)
@@ -160,26 +172,29 @@ def forward(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
     for u in range(n_units):
         layers = params.layers[u * U:(u + 1) * U]
         if remat:
-            x, a, c = checkpoint(_run_layers, layers, x, positions, collect_caches,
-                                 use_reentrant=False)
+            x, a, c = checkpoint(_run_layers, layers, x, positions, collect_caches, mesh,
+                                 multi_pod, use_reentrant=False)
         else:
-            x, a, c = _run_layers(layers, x, positions, collect_caches)
+            x, a, c = _run_layers(layers, x, positions, collect_caches, mesh, multi_pod)
         aux = aux + a
         caches += c
-    x, a, c = _run_layers(params.layers[n_units * U:], x, positions, collect_caches)
+    x, a, c = _run_layers(params.layers[n_units * U:], x, positions, collect_caches, mesh,
+                          multi_pod)
     aux = aux + a
     caches += c
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    logits = x @ params.head()
+    logits = wsc(x @ params.head(), sp["logits"], mesh)
     return logits, aux, caches if collect_caches else None
 
 
-def loss_fn(cfg: ArchConfig, params: LM, batch: dict, *, remat: bool = True):
+def loss_fn(cfg: ArchConfig, params: LM, batch: dict, *, mesh=None, multi_pod: bool = False,
+            remat: bool = True):
     """Next-token CE on the full-length forward, shifted on the label side,
     plus 0.01 x the MoE aux loss: (loss, {"ce", "aux"})."""
     tokens = batch["tokens"]
     prefix = batch.get("prefix_embeds")
-    logits, aux, _ = forward(cfg, params, tokens, prefix_embeds=prefix, remat=remat)
+    logits, aux, _ = forward(cfg, params, tokens, mesh=mesh, multi_pod=multi_pod,
+                             prefix_embeds=prefix, remat=remat)
     npfx = 0 if prefix is None else prefix.shape[1]
     if npfx:
         logits = logits[:, npfx:]
@@ -198,12 +213,13 @@ def loss_fn(cfg: ArchConfig, params: LM, batch: dict, *, remat: bool = True):
 
 
 @torch.no_grad()
-def prefill(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *,
-            prefix_embeds: Optional[torch.Tensor] = None):
+def prefill(cfg: ArchConfig, params: LM, tokens: torch.Tensor, *, mesh=None,
+            multi_pod: bool = False, prefix_embeds: Optional[torch.Tensor] = None):
     """Full-sequence forward that also emits per-layer caches; returns
     (last-position logits, caches)."""
-    logits, _, caches = forward(cfg, params, tokens, prefix_embeds=prefix_embeds,
-                                remat=False, collect_caches=True)
+    logits, _, caches = forward(cfg, params, tokens, mesh=mesh, multi_pod=multi_pod,
+                                prefix_embeds=prefix_embeds, remat=False,
+                                collect_caches=True)
     return logits[:, -1], caches
 
 
@@ -227,7 +243,7 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int, device=None) -> List[
 
 @torch.no_grad()
 def decode_step(cfg: ArchConfig, params: LM, token: torch.Tensor, caches: List[dict],
-                pos: int):
+                pos: int, *, mesh=None, multi_pod: bool = False):
     """One-token decode: (B,) token ids + caches -> ((B,V) logits, caches).
 
     The attention layers' K/V tensors in ``caches`` are written in place
@@ -236,7 +252,8 @@ def decode_step(cfg: ArchConfig, params: LM, token: torch.Tensor, caches: List[d
     x = params.embed[token[:, None]].to(_dtype(cfg))
     new = []
     for layer, cache in zip(params.layers, caches):
-        x, c = layer.decode(x, cache, pos)
+        x, c = layer.decode(x, cache, pos, mesh, multi_pod)
         new.append(c)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return (x @ params.head())[:, 0], new
+    sp = act_specs(multi_pod)["logits"]
+    return wsc((x @ params.head())[:, 0], P(sp[0], sp[2]), mesh), new

@@ -19,11 +19,10 @@ REF = SRC / "repro"
 PACKAGES = ("core", "graph", "kernels", "deploy", "dynamic", "resilience", "obs", "ckpt",
             "configs", "models", "optim", "data", "launch")
 
-# ROADMAP.md, Queue 1 item 4: (4c) the mesh and expert parallelism, (4d)
-# the dry-run tooling; (4b), training, is ported
-_Q4C = "Queue 1 item 4c"
+# ROADMAP.md, Queue 1 item 4: (4d) the dry-run tooling; (4b), training,
+# and (4c), the mesh and expert parallelism, are ported
 _Q4D = "Queue 1 item 4d"
-ITEMS = (_Q4C, _Q4D)
+ITEMS = (_Q4D,)
 #: reference modules the port holds name for name: none of them may stand
 #: in the tables below
 PORTED_WHOLE = ("optim", "optim.adamw", "optim.compression", "optim.schedule", "data",
@@ -34,7 +33,6 @@ UNDEFINED = "undefined in the reference"
 #: reference modules the port has not taken on yet, with the item that
 #: ports them: each of their names is open
 MODULE_ITEMS = {
-    "models.sharding": _Q4C, "ckpt.elastic": _Q4C,
     "launch.dryrun": _Q4D, "launch.dryrun_paper": _Q4D, "launch.hlo_analysis": _Q4D,
     "launch.roofline": _Q4D, "launch.reanalyze": _Q4D, "launch.summarize": _Q4D,
 }
@@ -62,16 +60,6 @@ NOT_BY_NAME = {
         "repro_torch.core.evo_device.evo_generation_step_sharded",
     ("kernels.lp_score.lp_score", "LANE"): "repro_torch.graph.packing.ELL_WIDTH",
     ("kernels.lp_score.lp_score", "TILE_R"): "repro_torch.graph.packing.ell_pack",
-    ("ckpt", "reshard_restore"): _Q4C,
-    ("ckpt", "shardings_for"): _Q4C,
-    ("launch.mesh", "make_production_mesh"): _Q4C,
-    ("models", "param_pspecs"): _Q4C,
-    ("models", "act_specs"): _Q4C,
-    ("models", "DP"): _Q4C,
-    ("models", "TP"): _Q4C,
-    ("models.moe", "moe_ep"): _Q4C,
-    ("launch.steps", "state_specs"): _Q4C,
-    ("launch.steps", "norm_spec"): _Q4C,
     ("launch.steps", "input_specs"): _Q4D,
     ("models.moe", "MoEParams"): UNDEFINED,
 }
@@ -180,13 +168,12 @@ def test_training_modules_are_held_name_for_name():
     """optim, data and launch.train are ported whole: each is found, none
     stands in a table, so the parametrized test above fails on any of
     their names the port lacks; launch.steps is held name for name but
-    for its mesh and dry-run specs."""
+    for its dry-run specs."""
     mods = dict(MODULES)
     for mod in PORTED_WHOLE:
         assert mod in mods and _port_has(mod), mod
         assert mod not in MODULE_ITEMS, mod
         assert not [k for k in NOT_BY_NAME if k[0] == mod], mod
     assert mods["launch.train"] == ["main"]
-    assert {n for (m, n) in NOT_BY_NAME if m == "launch.steps"} == \
-        {"input_specs", "state_specs", "norm_spec"}
+    assert {n for (m, n) in NOT_BY_NAME if m == "launch.steps"} == {"input_specs"}
     assert "launch.steps" not in MODULE_ITEMS

@@ -1,10 +1,11 @@
 """repro_torch cases that need an NVIDIA GPU: each hand-written CUDA kernel
 against its plain PyTorch version on the card, and the dense round's, the
 batched GA's, the dynamic serving subsystem's, the DR stack's, the
-distributed path's, the matching baseline's and the LM's card paths
-against their CPU paths.  Marked ``cuda``; they skip without a device.
-This file imports neither jax nor the reference package, so it runs on a
-GPU machine that has only PyTorch:
+distributed path's, the matching baseline's, the LM's and the
+expert-parallel MoE's card paths against their CPU paths.  Marked
+``cuda``; they skip without a device.  This file imports neither jax nor
+the reference package, so it runs on a GPU machine that has only
+PyTorch:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -388,3 +389,44 @@ def test_lm_grads_and_train_step_card_matches_cpu():
         assert abs(l1 - l0) <= 1e-5 * abs(l0), arch
         assert max(rel(g1[k], g0[k]) for k in g0) <= 3e-5, arch
         assert rel(s1[0], s0[0]) <= 1e-5 and rel(s1[1], s0[1]) <= 1e-4, arch
+
+
+@pytest.mark.cuda
+def test_moe_ep_card_matches_cpu():
+    """``moe_ep`` at smoke width in float32 on a 2x4 mesh of the card
+    against the port's own CPU result on a 2x4 mesh of CPU coordinates:
+    at capacity 1.25 and 0.5 the same assignments are dropped and the
+    output, aux and input gradient agree within 1e-5; at 8.0 nothing
+    drops and it equals ``moe_dense`` within 2e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import make_mesh
+    from repro_torch.models.moe import moe_dense, moe_ep
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator().manual_seed(0)
+    E, D, F = 8, 32, 64
+    p = {"router": torch.randn(D, E, generator=gen) * D ** -0.5,
+         "w_up": torch.randn(E, D, F, generator=gen) * D ** -0.5,
+         "w_gate": torch.randn(E, D, F, generator=gen) * D ** -0.5,
+         "w_down": torch.randn(E, F, D, generator=gen) * F ** -0.5}
+    x = torch.randn(4, 16, D, generator=gen)
+    for cf in (8.0, 1.25, 0.5):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            mesh = make_mesh((2, 4), ("data", "model"), [dev] * 8)
+            xd = x.to(dev, copy=True).requires_grad_(True)
+            stats = {}
+            y, aux = moe_ep({k: v.to(dev) for k, v in p.items()}, xd, mesh=mesh, topk=2,
+                            n_experts=E, capacity_factor=cf, stats=stats)
+            (y.square().sum() + aux).backward()
+            out[dev] = (y.detach().cpu(), float(aux), xd.grad.cpu(),
+                        [k.cpu() for k in stats["keep"]])
+        (y0, a0, g0, k0), (y1, a1, g1, k1) = out["cpu"], out["cuda"]
+        assert all(torch.equal(a, b) for a, b in zip(k0, k1)), cf
+        torch.testing.assert_close(y1, y0, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(g1, g0, rtol=1e-5, atol=1e-5)
+        assert abs(a1 - a0) <= 1e-5 * abs(a0)
+        if cf == 8.0:
+            assert all(bool(k.all()) for k in k0)
+            assert float((y0 - moe_dense(p, x, topk=2)[0]).abs().max()) < 2e-4

@@ -95,15 +95,20 @@ def test_unported_options_raise():
     """Every engine of the reference is ported: an unknown engine or GA
     engine is an error, the distributed engine needs a PE count and runs
     with one, and evo_engine="device" runs the batched GA.
-    ``launch.train.main`` trains on one device until the mesh slice: any
-    other --mesh raises."""
+    ``launch.train.main`` trains on any --mesh DxM whose model axis splits
+    the experts, as the reference's does, and raises otherwise."""
     from repro_torch.core import PartitionerConfig, partition
     from repro_torch.graph import mesh2d
     from repro_torch.launch.train import main as train_main
 
     for mesh in ("2x1", "1x4"):
-        with pytest.raises(ValueError, match="mesh"):
-            train_main(["--smoke", "--steps", "1", "--mesh", mesh, "--device", "cpu"])
+        losses = train_main(["--smoke", "--steps", "1", "--mesh", mesh, "--device", "cpu"])
+        assert len(losses) == 1 and np.isfinite(losses[0])
+    with pytest.raises(AssertionError):
+        train_main(["--arch", "granite-moe-1b-a400m", "--smoke", "--steps", "1", "--mesh",
+                    "1x3", "--device", "cpu"])
+    with pytest.raises(ValueError):
+        train_main(["--smoke", "--steps", "1", "--mesh", "4", "--device", "cpu"])
 
     g = mesh2d(8)
     with pytest.raises(ValueError):
