@@ -115,7 +115,16 @@ Phases, each of which fails the run:
    with each MoE layer's dropped share, one ``moe_ep`` call against its
    bound and ``moe_dense``, and prefill and decode at 1x4; (c) the 2x2
    run's train state saved and ``reshard_restore``d onto 1x4 and 4x1, every
-   shard bit for bit.
+   shard bit for bit;
+14. the dry-run tooling (``repro_torch.launch.hlo_analysis``,
+   ``roofline``, ``dryrun_paper``): 12b's and 13b's cells counted on the
+   ``meta`` device, the counted state bytes equal to the card's state
+   storage and the counted peak of live bytes within 15 % of
+   ``max_memory_allocated``, the roofline terms beside the measured step;
+   one PE's refinement phase of the paper's sweep at uk-2007 shard shapes
+   on the card against its bound and its counted bytes.
+Phases 7b and 8b print each device program's bound (inputs read once,
+results written once) beside the counter's unfused per-op bytes.
 Then one JSON line with each kernel's numbers and, last, the device line.
 
 Run from the repository root:  python3 chip_smoke.py
@@ -176,6 +185,30 @@ def _time_ms(fn, torch, warmup: int = 3, batches: int = 5, reps: int = 10) -> fl
         times.append(a.elapsed_time(b) / reps)
     times.sort()
     return times[len(times) // 2]
+
+
+def _io_bound(fn, inputs) -> dict:
+    """One call of ``fn``: its bound, the bytes of ``inputs`` (what it
+    reads) read once and of its results written once at HBM bandwidth, and
+    the counter's unfused per-op bytes of the same call
+    (``launch.hlo_analysis.count_step``), a ceiling beside the bound."""
+    from repro_torch.launch.hlo_analysis import count_step, tensor_bytes
+
+    nbytes = tensor_bytes(inputs) + tensor_bytes(fn())
+    counted = count_step(fn).hbm_bytes
+    return dict(io_bytes=nbytes, bound_ms=round(nbytes / PEAK_BYTES_PER_S * 1e3, 5),
+                counted_bytes=int(counted),
+                counted_ms=round(counted / PEAK_BYTES_PER_S * 1e3, 5))
+
+
+def _phase_inputs(st, c: int, ll, lg, table=None) -> list:
+    """What one ``shard_phase`` over chunk ``c`` reads: the chunk's rows,
+    the PE's node weights and masks (and its ghosts' for the clustering's
+    local table), the labels and, refining, the block weights."""
+    rows = [getattr(st, f)[c] for f in ("ch_nodes", "ch_node_valid", "ch_edge_dst",
+                                        "ch_edge_w", "ch_edge_slot", "ch_edge_valid")]
+    extra = [table] if table is not None else [st.ghost_nw, st.ghost_valid]
+    return rows + [st.nw_local, st.local_valid, ll, lg] + extra
 
 
 def measure_lp_score_rows(torch, lbl, w, k: int) -> dict:
@@ -1134,25 +1167,33 @@ def time_dr_programs(torch, sess, dep) -> dict:
     lab = ex._labels_nb(gd, sess.labels, sess.k)
     s = dep.shards[0]
     hop, _ = _shard_masks(lab, gd.src, gd.indices, gd.indptr, 0, gd.n, dep.halo)
+    # name -> (program, the tensors it reads)
     fns = dict(
-        shard_masks=lambda: _shard_masks(lab, gd.src, gd.indices, gd.indptr, 0, gd.n,
-                                         dep.halo),
-        shard_extract=lambda: _shard_extract(
+        shard_masks=(lambda: _shard_masks(lab, gd.src, gd.indices, gd.indptr, 0, gd.n,
+                                          dep.halo), [lab, gd.src, gd.indices, gd.indptr]),
+        shard_extract=(lambda: _shard_extract(
             hop, lab, gd.indptr, gd.indices, gd.ew, gd.nw, gd.n, dep.halo, s.n_own,
             s.n_ghost, s.n_rows, Ob=s.own_g.shape[0], Gb=s.ghost_g.shape[0],
-            Eb=s.indices.shape[0]),
-        csr_audit=lambda: _csr_audit(gd.indptr, gd.src, gd.indices, gd.ew, gd.nw, gd.n, gd.m),
-        labels_audit=lambda: _labels_audit(sess.labels, sess.n, sess.k),
-        shard_owned_chk=lambda: _shard_owned_chk(s.own_g, s.ghost_g, s.indptr, s.indices,
-                                                 s.ew, s.n_own, s.m_local),
-        ghost_owner_audit=lambda: _ghost_owner_audit(s.ghost_g, s.ghost_block_dev,
-                                                     sess.labels, s.n_ghost),
+            Eb=s.indices.shape[0]), [hop, lab, gd.indptr, gd.indices, gd.ew, gd.nw]),
+        csr_audit=(lambda: _csr_audit(gd.indptr, gd.src, gd.indices, gd.ew, gd.nw, gd.n, gd.m),
+                   [gd.indptr, gd.src, gd.indices, gd.ew, gd.nw]),
+        labels_audit=(lambda: _labels_audit(sess.labels, sess.n, sess.k), [sess.labels]),
+        shard_owned_chk=(lambda: _shard_owned_chk(s.own_g, s.ghost_g, s.indptr, s.indices,
+                                                  s.ew, s.n_own, s.m_local),
+                         [s.own_g, s.ghost_g, s.indptr, s.indices, s.ew]),
+        ghost_owner_audit=(lambda: _ghost_owner_audit(s.ghost_g, s.ghost_block_dev,
+                                                      sess.labels, s.n_ghost),
+                           [s.ghost_g, s.ghost_block_dev, sess.labels]),
     )
-    out = {name: _time_ms(fn, torch, warmup=1, batches=3, reps=3) for name, fn in fns.items()}
+    out = {name: _time_ms(fn, torch, warmup=1, batches=3, reps=3)
+           for name, (fn, _) in fns.items()}
     shapes = dict(Nb=gd.indptr.shape[0] - 1, Mb=gd.indices.shape[0], Ob=s.own_g.shape[0],
                   Gb=s.ghost_g.shape[0], Eb=s.indices.shape[0], A=sess.labels.shape[0])
     print(f"7b DR device programs (block 0, {json.dumps(shapes)}), ms: "
           f"{json.dumps({k_: round(v, 4) for k_, v in out.items()})}", flush=True)
+    bounds = {name: _io_bound(fn, ins) for name, (fn, ins) in fns.items()}
+    print("7b DR device programs' bounds (inputs read once, results written once, at 3.35 "
+          "TB/s) and the counter's unfused per-op bytes: " + json.dumps(bounds), flush=True)
     return out
 
 
@@ -1600,17 +1641,21 @@ def check_sharded_ga_small(torch) -> None:
 
 
 class _Counted:
-    """Counts the calls of a module function while installed, and records
-    CUDA events around each, for the per-call device time."""
+    """Counts the calls of a module function while installed, keeps the
+    first call's arguments, and records CUDA events around each, for the
+    per-call device time."""
 
     def __init__(self, torch, module, name: str, timed: bool = False):
         self.torch, self.module, self.name = torch, module, name
         self.fn = getattr(module, name)
         self.calls, self.events, self.timed = 0, [], timed
+        self.first = None
 
     def __enter__(self):
         def wrapper(*a, **kw):
             self.calls += 1
+            if self.first is None:
+                self.first = (a, kw)
             if not self.timed:
                 return self.fn(*a, **kw)
             ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1765,6 +1810,20 @@ def check_dist_full(torch, g, phase4_cut: float, out_dir: Path) -> dict:
                                 warmup=1, batches=3, reps=3)
     print("8b device programs at the finest level's shapes (CUDA events), ms: "
           + json.dumps({k_: round(v, 4) for k_, v in prog.items()}), flush=True)
+    bounds = {
+        "shard_phase_cluster_pe0": _io_bound(
+            lambda: TD.shard_phase(shards[0], 0, lls[0], lgs[0], sub, U),
+            _phase_inputs(shards[0], 0, lls[0], lgs[0])),
+        "shard_phase_refine_pe0": _io_bound(
+            lambda: TD.shard_phase(shards[0], 0, lls_r[0], lgs_r[0], sub, L, tw, k),
+            _phase_inputs(shards[0], 0, lls_r[0], lgs_r[0], tw)),
+        "exchange": _io_bound(
+            lambda: TD.exchange(shards, lls, lgs),
+            [[st.iface_nodes, st.ghost_owner, st.ghost_slot, st.ghost_valid] for st in shards]
+            + lls + lgs),
+    }
+    print("8b bounds (inputs read once, results written once, at 3.35 TB/s) and the "
+          "counter's unfused per-op bytes: " + json.dumps(bounds), flush=True)
     del shards, lls, lgs, lls_r, lgs_r
 
     # ---- contract_distributed against the host contract
@@ -1781,9 +1840,12 @@ def check_dist_full(torch, g, phase4_cut: float, out_dir: Path) -> dict:
             for f in ("indptr", "indices", "ew", "nw"))):
         _fail("8b: contract_distributed differs from the host contract")
     q_ms = q.ms()
+    a, kw = q.first
+    qb = _io_bound(lambda: TD._shard_quotient(*a, **kw), (a, kw))
     print(f"8b contract_distributed == host contract (n_c={coarse.n}, m_c={coarse.m}): "
           f"{dist_s:.3f} s (per-PE device programs {sum(q_ms):.3f} ms in all, max "
-          f"{max(q_ms):.3f} ms) vs host {host_s:.3f} s", flush=True)
+          f"{max(q_ms):.3f} ms; PE 0's {q_ms[0]:.3f} ms against its bound "
+          f"{json.dumps(qb)}) vs host {host_s:.3f} s", flush=True)
     del plan, plan_r
 
     # ---- the sharded GA's generation step at full width (Ab = 2^19)
@@ -1798,6 +1860,11 @@ def check_dist_full(torch, g, phase4_cut: float, out_dir: Path) -> dict:
         steps[name] = st.ms()
         if st.calls != ga.generations:
             _fail(f"8b: {name} GA made {st.calls} generation steps, want {ga.generations}")
+        fa, fkw = st.first
+        print(f"8b GA {name} generation step bound: " + json.dumps(
+            _io_bound(lambda: TE.evo_generation_step_sharded(*fa, **fkw), (fa, fkw))),
+            flush=True)
+        del fa, fkw, st
         del eng
     if not torch.equal(labs["sharded"], labs["unsharded"]):
         _fail(f"8b: the GA sharded over [cuda:0] * 2 differs from the unsharded GA in "
@@ -2855,6 +2922,18 @@ def _train_main(torch, tag: str, arch: str, B: int, S: int, steps: int, extra=()
                 main_gnorms=gnorms)
 
 
+def _state_measured(torch, model, opt, before: int) -> dict:
+    """The train state the card holds: the distinct storages of the
+    model's parameters and buffers and of the optimizer's tensors (exact
+    bytes), and ``memory_allocated`` since ``before`` (the allocator
+    rounds each block up)."""
+    tensors = [*model.parameters(), *model.buffers(), opt.step,
+               *(t for d in (opt.mu, opt.nu, opt.master) for t in d.values())]
+    storages = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes() for t in tensors}
+    return dict(state_storage_bytes=sum(storages.values()),
+                state_allocated_bytes=torch.cuda.memory_allocated() - before)
+
+
 def _train_bound(cfg, model, B: int, S: int) -> dict:
     """The least time of one train step with remat: its matmul FLOPs (8 per
     weight of a matmul and token: forward, the recomputed forward and the
@@ -2954,9 +3033,11 @@ def train_full(torch, card: str, arch: str, B: int, S: int, steps: int, profile:
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     model = make_state(cfg, 0, dev)
     named = dict(model.named_parameters())
     opt = adamw_init(named)
+    row.update(_state_measured(torch, model, opt, before))
     step = make_train_step(cfg, lr=1e-3, remat=True)
     batches = [_pipeline_batch(torch, cfg, s, B, S, dev) for s in range(steps)]
     ms, losses, gnorms = [], [], []
@@ -3063,8 +3144,9 @@ def check_train_resume(torch, workdir: str) -> None:
         _fail(f"12d: resumed {resumed} vs uninterrupted {full[6:]}")
 
 
-def check_lm_training(torch, card: str) -> None:
-    """Phase 12: 12a every architecture at smoke width, card == CPU, with
+def check_lm_training(torch, card: str) -> dict:
+    """Phase 12 (returns 12b/12c's rows by architecture): 12a every
+    architecture at smoke width, card == CPU, with
     the ``train_lm`` twin (12d) in its own process beside it, waited for
     before the timed runs; 12b qwen2.5-3b at full width through
     ``launch.train.main`` with the numbers, the profile and the optimizer
@@ -3080,8 +3162,9 @@ def check_lm_training(torch, card: str) -> None:
             p.wait()
         raise
     _wait_twins(twin, "12d", t0)
+    rows = {}
     for arch, B, S, steps, prof in TRAIN_FULL:
-        train_full(torch, card, arch, B, S, steps, prof)
+        rows[arch] = train_full(torch, card, arch, B, S, steps, prof)
         torch.cuda.empty_cache()
     for arch, *_ in TRAIN_FULL:
         check_layer_grads_full(torch, arch)
@@ -3091,6 +3174,7 @@ def check_lm_training(torch, card: str) -> None:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"12: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -3274,8 +3358,10 @@ def train_mesh(torch, card: str, shape, B: int = 4, S: int = 512, steps: int = 4
     mesh = _card_mesh(shape)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     model = make_state(cfg, 0, torch.device("cuda", 0))
     opt = adamw_init(dict(model.named_parameters()))
+    state = _state_measured(torch, model, opt, before)
     step = make_train_step(cfg, mesh, lr=1e-3, remat=True)
     batches = [_pipeline_batch(torch, cfg, s, B, S, "cuda") for s in range(steps)]
     ms, losses, gnorms, shares = [], [], [], []
@@ -3302,7 +3388,7 @@ def train_mesh(torch, card: str, shape, B: int = 4, S: int = 512, steps: int = 4
     steady = sorted(ms[1:])
     step_ms = steady[len(steady) // 2]
     flat = [x for s_ in shares for x in s_]
-    row = dict(arch=MESH_ARCH, card=card, mesh=list(shape), batch=B, seq=S,
+    row = dict(arch=MESH_ARCH, card=card, mesh=list(shape), batch=B, seq=S, **state,
                step_ms=[round(x, 3) for x in ms], median_step_ms=round(step_ms, 3),
                tok_s=round(B * S * 1e3 / step_ms, 1), max_memory_allocated=peak,
                losses=losses, gnorms=gnorms, moe_ep_calls_per_step=len(calls),
@@ -3422,8 +3508,9 @@ def check_elastic(torch, card: str, model, opt, workdir: str) -> dict:
     return out
 
 
-def check_mesh(torch, card: str) -> None:
-    """Phase 13: 13a at smoke width, card == CPU; 13b granite at full width
+def check_mesh(torch, card: str) -> dict:
+    """Phase 13 (returns 13b's rows by mesh shape): 13a at smoke width,
+    card == CPU; 13b granite at full width
     through ``launch.train.main --mesh 2x2`` (2 steps), then the timed
     runs at 1x4, 2x2 and 1x1 (the dense MoE), one ``moe_ep`` call's
     numbers and serving at 1x4; 13c the elastic restore of the 2x2
@@ -3471,7 +3558,114 @@ def check_mesh(torch, card: str) -> None:
     for (a, b), r in rows.items():
         print(f"13b {json.dumps(r)}", flush=True)
     print(f"13: {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
 
+
+
+# --------------------------------------------------------------------------
+# phase 14: the dry-run tooling (repro_torch.launch.hlo_analysis, roofline,
+# dryrun_paper): the meta-device count of the cells 12b and 13b ran held
+# against what the card measured, and one PE's refinement phase of the
+# paper's sweep at uk-2007 shard shapes on the card
+# --------------------------------------------------------------------------
+
+
+def check_dryrun(torch, card: str, cells) -> dict:
+    """Phase 14: for each (tag, arch, mesh shape, row) of ``cells`` (12b's
+    and 13b's rows) the dry run's count of one train step of the row's
+    batch on the ``meta`` device (``launch.dryrun.count_cell``): its state bytes
+    must equal the card's state storage and its peak of live bytes be
+    within ``obs.memory.FOOTPRINT_TOLERANCE`` of ``max_memory_allocated``
+    (every coordinate shares the card as it shares ``meta``, so the global
+    peak is the one to compare); the roofline terms under the port's
+    ``HW`` beside the measured step.  Then one PE's refinement phase of
+    ``dryrun_paper`` at uk-2007 shard shapes (256 PEs) on the card, from a
+    seeded synthetic chunk: CUDA-event ms, the counted bytes on the card's
+    tensors and on ``meta``, the bound."""
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.core.distributed_lp import block_weights, shard_phase
+    from repro_torch.kernels.lp_score.threefry import fold_in, prng_key, split
+    from repro_torch.launch import dryrun_paper as DP
+    from repro_torch.launch import make_mesh
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.launch.hlo_analysis import count_step
+    from repro_torch.launch.roofline import roofline
+    from repro_torch.obs.memory import FOOTPRINT_TOLERANCE
+
+    out = {}
+    for tag, arch, mesh_shape, row in cells:
+        cfg = get_config(arch)
+        shape = Shape("card", "train", row["seq"], row["batch"])
+        mesh = make_mesh(mesh_shape, ("data", "model"),
+                         ["meta"] * (mesh_shape[0] * mesh_shape[1]))
+        t = time.perf_counter()
+        hc, _ = count_cell(cfg, shape, mesh, False, 1)      # global: every coordinate
+        secs = time.perf_counter() - t
+        rl = roofline(hc, 1, cfg, shape)
+        err = hc.peak_bytes / row["max_memory_allocated"] - 1
+        r = dict(arch=arch, mesh=list(mesh_shape), count_s=round(secs, 3),
+                 counted_state_bytes=hc.state_bytes,
+                 measured_state_bytes=row["state_storage_bytes"],
+                 state_allocated_bytes=row["state_allocated_bytes"],
+                 counted_peak_bytes=hc.peak_bytes,
+                 measured_peak_bytes=row["max_memory_allocated"], peak_error=round(err, 4),
+                 flops=hc.flops, hbm_bytes=hc.hbm_bytes, collectives=hc.collective_bytes,
+                 compute_ms=round(rl["compute_s"] * 1e3, 4),
+                 memory_ms=round(rl["memory_s"] * 1e3, 4),
+                 collective_ms=round(rl["collective_s"] * 1e3, 4), dominant=rl["dominant"],
+                 measured_step_ms=row["median_step_ms"])
+        out[tag] = r
+        print(f"14 {tag} {arch} at mesh {mesh_shape[0]}x{mesh_shape[1]}, {row['batch']} x "
+              f"{row['seq']}, counted on meta in {secs:.3f} s: state {hc.state_bytes} bytes "
+              f"counted, {row['state_storage_bytes']} on the card ({row['state_allocated_bytes']}"
+              f" allocated); peak {hc.peak_bytes / 2**30:.3f} GiB counted, "
+              f"{row['max_memory_allocated'] / 2**30:.3f} GiB max_memory_allocated "
+              f"({err:+.4f}, limit {FOOTPRINT_TOLERANCE}); roofline under HW "
+              f"(989 TFLOP/s, 3.35 TB/s, 450 GB/s): compute {r['compute_ms']} ms "
+              f"({hc.flops / 1e12:.2f} TFLOP), memory {r['memory_ms']} ms (unfused "
+              f"{hc.hbm_bytes / 1e9:.1f} GB), collective {r['collective_ms']} ms, "
+              f"{rl['dominant']}; the card's step {row['median_step_ms']} ms; [{card}]",
+              flush=True)
+        if hc.state_bytes != row["state_storage_bytes"]:
+            _fail(f"14 {tag}: counted state {hc.state_bytes} bytes, the card holds "
+                  f"{row['state_storage_bytes']}")
+        if not abs(err) <= FOOTPRINT_TOLERANCE:
+            _fail(f"14 {tag}: counted peak {hc.peak_bytes} against max_memory_allocated "
+                  f"{row['max_memory_allocated']} ({err:+.4f})")
+
+    # one PE's refinement phase of the paper's sweep at uk-2007 shapes
+    k = 16
+    d = DP.shard_dims(105.8e6, 3.3e9, 256)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    st, ll, lg = DP.pe_tensors(d, "cuda", gen, k=k)
+    args_bytes = torch.cuda.memory_allocated() - before
+    table = block_weights(st, ll, k)
+    table[k] = float("inf")
+    _, sub = split(fold_in(prng_key(0), 0))
+    fn = lambda: shard_phase(st, 0, ll, lg, sub, DP.U, table, k)
+    ms = _time_ms(fn, torch, warmup=1, batches=3, reps=3)
+    b = _io_bound(fn, _phase_inputs(st, 0, ll, lg, table))
+    mst, mll, mlg = DP.pe_tensors(d, "meta", k=k)
+    meta_bytes = count_step(shard_phase, mst, 0, mll, mlg, sub, DP.U,
+                            torch.empty(k + 1, device="meta"), k).hbm_bytes
+    peak = torch.cuda.max_memory_allocated() - before
+    out["paper_refine_phase"] = dict(dims=d, ms=round(ms, 4), args_bytes=args_bytes,
+                                     peak_bytes=peak, meta_counted_bytes=int(meta_bytes), **b)
+    print(f"14 dryrun_paper: one PE's refinement phase (k={k}) at uk-2007 shard shapes, 256 "
+          f"PEs (Nc={d['Nc']}, Ec={d['Ec']}, maxN={d['maxN']}, maxG={d['maxG']}), seeded "
+          f"synthetic chunk, {args_bytes / 2**30:.3f} GiB of tensors: {ms:.4f} ms (CUDA "
+          f"events) against a bound of {b['bound_ms']} ms ({b['io_bytes'] / 1e6:.1f} MB read "
+          f"and written once at 3.35 TB/s); counted unfused {b['counted_bytes'] / 1e9:.3f} GB "
+          f"on the card's tensors ({b['counted_ms']} ms at 3.35 TB/s), "
+          f"{meta_bytes / 1e9:.3f} GB on meta; peak {peak / 2**30:.3f} GiB; [{card}]",
+          flush=True)
+    del st, ll, lg, table
+    torch.cuda.empty_cache()
+    print(f"14 {json.dumps(out)}", flush=True)
+    return out
 
 
 def main(argv=None) -> int:
@@ -3606,7 +3800,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     torch.cuda.synchronize()
     lp_score_rows.launches = 0
-    check_lm_training(torch, card)
+    rows12 = check_lm_training(torch, card)
     torch.cuda.synchronize()
     print(f"phase 12: {time.perf_counter() - t:.1f} s; lp_score_rows launches "
           f"{lp_score_rows.launches} (the training path runs no hand-written kernel)",
@@ -3617,10 +3811,20 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     torch.cuda.synchronize()
     lp_score_rows.launches = 0
-    check_mesh(torch, card)
+    rows13 = check_mesh(torch, card)
     torch.cuda.synchronize()
     print(f"phase 13: {time.perf_counter() - t:.1f} s; lp_score_rows launches "
           f"{lp_score_rows.launches} (the mesh path runs no hand-written kernel)", flush=True)
+
+    # ---- phase 14: the dry-run tooling (this slice's path): the meta count
+    # held against 12b and 13b's card runs; it runs no hand-written kernel
+    t = time.perf_counter()
+    lp_score_rows.launches = 0
+    check_dryrun(torch, card, (("12b", "qwen2.5-3b", (1, 1), rows12["qwen2.5-3b"]),
+                               ("13b", MESH_ARCH, (1, 4), rows13[(1, 4)])))
+    torch.cuda.synchronize()
+    print(f"phase 14: {time.perf_counter() - t:.1f} s; lp_score_rows launches "
+          f"{lp_score_rows.launches} (the dry run runs no hand-written kernel)", flush=True)
     kernels = [dict(
         name="lp_score_rows",
         route="cuda",

@@ -209,9 +209,13 @@ def restore(path: str, step: int, like: Any, shardings: Any = None):
         if tuple(h.shape) != tuple(np.shape(l)):
             raise ValueError(f"leaf shape {h.shape} vs template {np.shape(l)}")
     if shardings is not None:
+        placements = _leaves(shardings)
+        if len(placements) != len(leaves):
+            raise ValueError(f"shardings tree has {len(placements)} leaves, template "
+                             f"{len(leaves)}")
         out = [s.place(torch.from_numpy(h), l.dtype) if isinstance(l, torch.Tensor)
                else s.place(torch.from_numpy(h.astype(np.asarray(l).dtype)))
-               for h, l, s in zip(host, leaves, _leaves(shardings))]
+               for h, l, s in zip(host, leaves, placements)]
     else:
         out = [_like_leaf(h, l) for h, l in zip(host, leaves)]
     return _unflatten(like, iter(out)), manifest["extra"]

@@ -360,11 +360,17 @@ def shard_phase(st: ShardTensors, c: int, ll, lg, sub, U: float, table_w=None,
     return out[:maxN]
 
 
-def exchange(shards: Sequence[ShardTensors], lls, lgs) -> list:
+def exchange(shards: Sequence[ShardTensors], lls, lgs, n_pes: Optional[int] = None) -> list:
     """The phase's label exchange: every PE's interface labels, stacked
     into ``(P, maxI)`` on each distinct device, are read into the ghosts of
-    the PEs there.  Returns the new ghost labels."""
+    the PEs there.  Returns the new ghost labels.  ``n_pes``: the number
+    of PEs when ``shards`` holds one PE alone (a dry run of its program):
+    its send buffer then stands in for each of the ``n_pes``."""
     sends = [ll[torch.clamp(st.iface_nodes, min=0)] for st, ll in zip(shards, lls)]
+    if n_pes is not None:
+        if len(shards) != 1:
+            raise ValueError(f"n_pes is for one PE's shard, got {len(shards)}")
+        sends = sends * n_pes
     bufs = {}
     for st in shards:
         if st.device not in bufs:

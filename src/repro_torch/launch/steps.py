@@ -7,8 +7,10 @@ state whole on one device, as the reference's own ``launch.train``
 leaves them (its jit takes no shardings).  The mesh reaches the model,
 whose MoE layers then run ``moe_ep`` over it.  ``state_specs`` gives the shardings
 the reference would place the state with (``NamedSharding`` of
-``models.sharding``); the dry-run's ``input_specs`` and the ``compile_*``
-builders come with ``ROADMAP.md``, Queue 1 item 4d.
+``models.sharding``), and ``input_specs`` the ``meta``-device inputs of a
+dry-run cell.  The reference's ``compile_*`` builders lower and compile
+for XLA; the port compiles nothing, and its dry run
+(``launch.dryrun``) runs these same steps once on the ``meta`` device.
 """
 
 from __future__ import annotations
@@ -17,14 +19,14 @@ from typing import Dict
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, Shape
 from ..models.convert import reference_leaves
-from ..models.model import LM, decode_step, loss_fn, prefill
+from ..models.model import LM, decode_step, init_caches, loss_fn, prefill
 from ..models.sharding import P, NamedSharding, param_pspecs
 from ..optim.adamw import AdamWState, adamw_init, adamw_update
 from ..optim.compression import compress_decompress
 
-__all__ = ["state_specs", "norm_spec", "make_train_step", "make_prefill",
+__all__ = ["input_specs", "state_specs", "norm_spec", "make_train_step", "make_prefill",
            "make_decode_step", "abstract_params", "abstract_opt"]
 
 
@@ -56,6 +58,25 @@ def abstract_opt(aparams):
     if isinstance(aparams, torch.nn.Module):
         aparams = dict(aparams.named_parameters())
     return adamw_init(aparams)
+
+
+def input_specs(cfg: ArchConfig, shape: Shape) -> dict:
+    """``meta`` stand-ins for every model input of this cell, where the
+    reference gives ``ShapeDtypeStruct``s: int32 tokens (as
+    ``data.pipeline`` gives them) and float32 ``prefix_embeds`` for train
+    and prefill; for decode one int32 token per sequence, the caches of an
+    S-length context and a 0-d int32 position."""
+    B, S = shape.batch, shape.seq
+    meta = torch.device("meta")
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": torch.empty((B, S), dtype=torch.int32, device=meta)}
+        if cfg.n_prefix:
+            out["prefix_embeds"] = torch.empty((B, cfg.n_prefix, cfg.d_model),
+                                               dtype=torch.float32, device=meta)
+        return out
+    return {"token": torch.empty((B,), dtype=torch.int32, device=meta),
+            "caches": init_caches(cfg, B, S, device=meta),
+            "pos": torch.empty((), dtype=torch.int32, device=meta)}
 
 
 def state_specs(cfg: ArchConfig, mesh, multi_pod: bool):

@@ -26,9 +26,6 @@ from torch import nn
 # only in how GSPMD partitions a sequence-sharded cache.  The port has no
 # GSPMD and makes one indexed write whatever the switch says.
 _CACHE_UPDATE = os.environ.get("REPRO_CACHE_UPDATE", "where")
-# attention intermediate dtype: "f32" keeps K/V/P in fp32 through the
-# softmax pipeline; "bf16" keeps matmul operands bf16 (softmax stats in f32)
-_ATTN_DT = os.environ.get("REPRO_ATTN_DTYPE", "f32")
 
 __all__ = [
     "rmsnorm",
@@ -86,8 +83,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 def _acc_dtype(bf16_dtype: torch.dtype) -> torch.dtype:
     """Attention's matmul operand dtype: float32, or under
     ``REPRO_ATTN_DTYPE=bf16`` the given one (bf16 in prefill, the cache's
-    dtype in decode, as in the reference)."""
-    return torch.float32 if _ATTN_DT == "f32" else bf16_dtype
+    dtype in decode, as in the reference).  "f32" keeps K/V/P in float32
+    through the softmax pipeline.  The switch is read at each call, so a
+    dry-run variant (``launch.dryrun.VARIANTS``) takes effect in-process."""
+    return torch.float32 if os.environ.get("REPRO_ATTN_DTYPE", "f32") == "f32" else bf16_dtype
 
 
 def _qkv(params, x, n_heads, n_kv, d_head):

@@ -36,7 +36,7 @@ import torch
 from .layers import ACTS, ParamBlock, normal
 from .sharding import DP, TP
 
-__all__ = ["init_moe_params", "moe_dense", "moe_ep", "router_topk", "MoE"]
+__all__ = ["init_moe_params", "moe_dense", "moe_ep", "ep_blocks", "router_topk", "MoE"]
 
 
 def init_moe_params(gen, d_model, d_ff, n_experts, glu, dtype, device=None):
@@ -162,6 +162,22 @@ def _coord(mesh, dp_axes, i: int, tp_axis: str, m: int):
     return tuple(at.get(a, 0) for a in mesh.axis_names)
 
 
+def ep_blocks(B: int, S: int, mesh, dp_axes, tp_axis: str, topk: int, n_experts: int,
+              capacity_factor: float):
+    """(blocks over the data axes, blocks over the model axis, capacity per
+    expert) of ``moe_ep`` on (B, S) tokens: adaptive activation sharding,
+    the batch over the data axes if they divide it, the sequence over the
+    model axis if it divides a sequence longer than 1 (decode steps with
+    S == 1 replicate over it; a batch the data axes do not divide
+    replicates over them), and the capacity from a block's own tokens."""
+    dp_size = math.prod(mesh.shape[a] for a in dp_axes)
+    P_m = mesh.shape[tp_axis]
+    nb = dp_size if B % dp_size == 0 else 1
+    ns = P_m if (S > 1 and S % P_m == 0) else 1
+    T = (B // nb) * (S // ns)
+    return nb, ns, int(T * topk / n_experts * capacity_factor) + 1
+
+
 def moe_ep(
     params,
     x: torch.Tensor,        # (B, S, D)
@@ -189,14 +205,9 @@ def moe_ep(
     assert E_local * P_m == n_experts, (n_experts, P_m)
     if D % dp_size:
         raise ValueError(f"d_model {D} does not split over the data axes ({dp_size})")
-    # adaptive activation sharding: batch over dp if divisible, sequence
-    # over the model axis if divisible (decode steps with S == 1 replicate
-    # over it; a batch dp does not divide replicates over dp)
-    nb = dp_size if B % dp_size == 0 else 1
-    ns = P_m if (S > 1 and S % P_m == 0) else 1
+    nb, ns, cap = ep_blocks(B, S, mesh, dp_axes, tp_axis, topk, n_experts, capacity_factor)
     Bl, Sl = B // nb, S // ns
     T = Bl * Sl
-    cap = int(T * topk / n_experts * capacity_factor) + 1
     w_gate = params["w_gate"] if glu else None
 
     rows, auxes, keeps = [], [], []

@@ -19,10 +19,9 @@ REF = SRC / "repro"
 PACKAGES = ("core", "graph", "kernels", "deploy", "dynamic", "resilience", "obs", "ckpt",
             "configs", "models", "optim", "data", "launch")
 
-# ROADMAP.md, Queue 1 item 4: (4d) the dry-run tooling; (4b), training,
-# and (4c), the mesh and expert parallelism, are ported
-_Q4D = "Queue 1 item 4d"
-ITEMS = (_Q4D,)
+# ROADMAP.md, Queue 1 item 4: every part of it is ported, (4d) the
+# dry-run tooling last, so no item is open
+ITEMS = ()
 #: reference modules the port holds name for name: none of them may stand
 #: in the tables below
 PORTED_WHOLE = ("optim", "optim.adamw", "optim.compression", "optim.schedule", "data",
@@ -32,10 +31,7 @@ UNDEFINED = "undefined in the reference"
 
 #: reference modules the port has not taken on yet, with the item that
 #: ports them: each of their names is open
-MODULE_ITEMS = {
-    "launch.dryrun": _Q4D, "launch.dryrun_paper": _Q4D, "launch.hlo_analysis": _Q4D,
-    "launch.roofline": _Q4D, "launch.reanalyze": _Q4D, "launch.summarize": _Q4D,
-}
+MODULE_ITEMS = {}
 
 #: (reference module, name) -> its counterpart in the port (a dotted path
 #: that must resolve) or, for a name the port has not taken on yet, the
@@ -60,7 +56,8 @@ NOT_BY_NAME = {
         "repro_torch.core.evo_device.evo_generation_step_sharded",
     ("kernels.lp_score.lp_score", "LANE"): "repro_torch.graph.packing.ELL_WIDTH",
     ("kernels.lp_score.lp_score", "TILE_R"): "repro_torch.graph.packing.ell_pack",
-    ("launch.steps", "input_specs"): _Q4D,
+    ("launch.hlo_analysis", "analyze_hlo"): "repro_torch.launch.hlo_analysis.count_step",
+    ("launch.roofline", "collective_bytes"): "repro_torch.launch.hlo_analysis.count_step",
     ("models.moe", "MoEParams"): UNDEFINED,
 }
 
@@ -167,13 +164,14 @@ def test_table_names_only_reference_names():
 def test_training_modules_are_held_name_for_name():
     """optim, data and launch.train are ported whole: each is found, none
     stands in a table, so the parametrized test above fails on any of
-    their names the port lacks; launch.steps is held name for name but
-    for its dry-run specs."""
+    their names the port lacks; launch.steps is held name for name, its
+    dry-run specs included, and no module or item is open."""
     mods = dict(MODULES)
     for mod in PORTED_WHOLE:
         assert mod in mods and _port_has(mod), mod
         assert mod not in MODULE_ITEMS, mod
         assert not [k for k in NOT_BY_NAME if k[0] == mod], mod
     assert mods["launch.train"] == ["main"]
-    assert {n for (m, n) in NOT_BY_NAME if m == "launch.steps"} == {"input_specs"}
+    assert not {n for (m, n) in NOT_BY_NAME if m == "launch.steps"}
     assert "launch.steps" not in MODULE_ITEMS
+    assert not MODULE_ITEMS and not ITEMS

@@ -282,11 +282,11 @@ def test_argmax_takes_the_first_maximum():
 
 
 def test_bf16_switches(monkeypatch):
-    """REPRO_ATTN_DTYPE=bf16 (the module switch of both packages) and
-    REPRO_SSD_DTYPE=bf16 with REPRO_SSD_CHUNK=4 (read at call time by both),
-    on bf16 activations and caches."""
+    """REPRO_ATTN_DTYPE=bf16 (the reference's module switch, read at each
+    call by the port) and REPRO_SSD_DTYPE=bf16 with REPRO_SSD_CHUNK=4 (read
+    at call time by both), on bf16 activations and caches."""
     monkeypatch.setattr(RL, "_ATTN_DT", "bf16")
-    monkeypatch.setattr(PL, "_ATTN_DT", "bf16")
+    monkeypatch.setenv("REPRO_ATTN_DTYPE", "bf16")
     rng = np.random.default_rng(9)
     D, H, G, dh = 32, 4, 2, 8
     p = _attn_params(rng, D, H, G, dh)
