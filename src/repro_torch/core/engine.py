@@ -304,27 +304,29 @@ class LPEngine:
         return self.E_floor
 
     def _pack_host_build(self, g: GraphNP, mode: str) -> _DevicePack:
-        order = make_order(g, mode, self.seed)
-        pack = pack_chunks(
-            g, order, max_nodes=self.N,
-            max_edges=max(self._e_request, self.E_floor),
-            block=self.pack_block,
-        )
-        C = pack.nodes.shape[0]
-        Eb = self._bucket_edges(C, pack.edge_dst.shape[1])
-        padded = pad_pack(pack, self.C_bucket, self.N, Eb)
+        with _obs_span("pack.plan", cat="pack", n=int(g.n)):
+            order = make_order(g, mode, self.seed)
+            pack = pack_chunks(
+                g, order, max_nodes=self.N,
+                max_edges=max(self._e_request, self.E_floor),
+                block=self.pack_block,
+            )
+            C = pack.nodes.shape[0]
+            Eb = self._bucket_edges(C, pack.edge_dst.shape[1])
+            padded = pad_pack(pack, self.C_bucket, self.N, Eb)
         dev = self.device
-        dp = _DevicePack(
-            graph=g,
-            nodes=_upload(padded.nodes, dev, torch.int64),
-            node_valid=_upload(padded.node_valid, dev),
-            edge_dst=_upload(padded.edge_dst, dev, torch.int64),
-            edge_w=_upload(padded.edge_w, dev),
-            edge_src_slot=_upload(padded.edge_src_slot, dev, torch.int64),
-            edge_valid=_upload(padded.edge_valid, dev),
-            num_chunks=C,
-            shape=(self.C_bucket, self.N, Eb),
-        )
+        with _obs_span("pack.upload", cat="pack"):
+            dp = _DevicePack(
+                graph=g,
+                nodes=_upload(padded.nodes, dev, torch.int64),
+                node_valid=_upload(padded.node_valid, dev),
+                edge_dst=_upload(padded.edge_dst, dev, torch.int64),
+                edge_w=_upload(padded.edge_w, dev),
+                edge_src_slot=_upload(padded.edge_src_slot, dev, torch.int64),
+                edge_valid=_upload(padded.edge_valid, dev),
+                num_chunks=C,
+                shape=(self.C_bucket, self.N, Eb),
+            )
         self.stats.h2d_bytes += sum(
             int(t.numel() * t.element_size()) for t in
             (dp.nodes, dp.node_valid, dp.edge_dst, dp.edge_w,
@@ -337,23 +339,26 @@ class LPEngine:
         the O(n) chunk plan on the host, the O(m) edge fill gathered on the
         device from the resident CSR."""
         self.stats.gather_builds += 1
-        order = make_order(g, mode, self.seed)
-        deg = g.degrees().astype(np.int64)[order]
-        node_chunk, C, N, E = plan_chunks(
-            deg, g.n, max_nodes=self.N,
-            max_edges=max(self._e_request, self.E_floor),
-            block=self.pack_block,
-        )
-        Eb = self._bucket_edges(C, E)
-        nodes, node_valid = layout_nodes(order, node_chunk, C, N, g.n)
-        # Tight pow2 LIVE-chunk prefix: the sweep only visits the live
-        # chunks, so coarse levels get their own pow2 chunk bucket instead
-        # of the finest level's (dead chunks would multiply the gather).
-        Cg = pow2(C)
-        nodes = np.pad(nodes, ((0, Cg - C), (0, self.N - N)), constant_values=g.n)
-        node_valid = np.pad(node_valid, ((0, Cg - C), (0, self.N - N)))
-        nodes_d = _upload(nodes, self.device, torch.int64)
-        nv_d = _upload(node_valid, self.device)
+        with _obs_span("pack.plan", cat="pack", n=int(g.n)):
+            order = make_order(g, mode, self.seed)
+            deg = g.degrees().astype(np.int64)[order]
+            node_chunk, C, N, E = plan_chunks(
+                deg, g.n, max_nodes=self.N,
+                max_edges=max(self._e_request, self.E_floor),
+                block=self.pack_block,
+            )
+            Eb = self._bucket_edges(C, E)
+            nodes, node_valid = layout_nodes(order, node_chunk, C, N, g.n)
+            # Tight pow2 LIVE-chunk prefix: the sweep only visits the live
+            # chunks, so coarse levels get their own pow2 chunk bucket
+            # instead of the finest level's (dead chunks would multiply the
+            # gather).
+            Cg = pow2(C)
+            nodes = np.pad(nodes, ((0, Cg - C), (0, self.N - N)), constant_values=g.n)
+            node_valid = np.pad(node_valid, ((0, Cg - C), (0, self.N - N)))
+        with _obs_span("pack.upload", cat="pack"):
+            nodes_d = _upload(nodes, self.device, torch.int64)
+            nv_d = _upload(node_valid, self.device)
         self.stats.h2d_bytes += nodes_d.numel() * 8 + node_valid.nbytes
         note_new(self._gather_keys, "engine.gather",
                  (nodes.shape, g.indptr.shape[0], g.indices.shape[0], Eb))
@@ -383,36 +388,35 @@ class LPEngine:
             if isinstance(g, GraphDev) and g.m > 0:
                 # device ELL gather: O(n) row plan from the cached host
                 # indptr, O(m) dst/w fill from the resident CSR
-                row_node, row_first, row_end = plan_ell_rows(g._indptr_np(), g.n)
-                R = row_node.shape[0]
-                Rb = pow2(R)
-                row_node = np.pad(row_node, (0, Rb - R), constant_values=g.n)
-                row_first = np.pad(row_first, (0, Rb - R))
-                row_end = np.pad(row_end, (0, Rb - R))
-                rn_d = _upload(row_node, dev, torch.int64)
+                with _obs_span("pack.plan", cat="pack", n=int(g.n)):
+                    row_node, row_first, row_end = plan_ell_rows(g._indptr_np(), g.n)
+                    R = row_node.shape[0]
+                    Rb = pow2(R)
+                    row_node = np.pad(row_node, (0, Rb - R), constant_values=g.n)
+                    row_first = np.pad(row_first, (0, Rb - R))
+                    row_end = np.pad(row_end, (0, Rb - R))
+                with _obs_span("pack.upload", cat="pack"):
+                    rn_d = _upload(row_node, dev, torch.int64)
+                    first_d = _upload(row_first, dev, torch.int64)
+                    end_d = _upload(row_end, dev, torch.int64)
                 self.stats.h2d_bytes += Rb * 24
                 self.stats.gather_builds += 1
                 note_new(self._gather_keys, "engine.gather",
                          ("ell", Rb, g.indices.shape[0]))
-                dst_d, w_d = gather_ell_device(
-                    _upload(row_first, dev, torch.int64),
-                    _upload(row_end, dev, torch.int64),
-                    g.indices, g.ew, g.n,
-                )
+                dst_d, w_d = gather_ell_device(first_d, end_d, g.indices, g.ew, g.n)
             else:
-                gh = g.to_host() if isinstance(g, GraphDev) else g
-                ell = ell_pack(gh)
-                R = ell.rows
-                Rb = pow2(R)
-                dst_d = _upload(
-                    np.pad(ell.dst, ((0, Rb - R), (0, 0)), constant_values=g.n),
-                    dev, torch.int64,
-                )
-                w_d = _upload(np.pad(ell.w, ((0, Rb - R), (0, 0))), dev)
-                rn_d = _upload(
-                    np.pad(ell.row_node, (0, Rb - R), constant_values=g.n),
-                    dev, torch.int64,
-                )
+                with _obs_span("pack.plan", cat="pack", n=int(g.n)):
+                    gh = g.to_host() if isinstance(g, GraphDev) else g
+                    ell = ell_pack(gh)
+                    R = ell.rows
+                    Rb = pow2(R)
+                    dst = np.pad(ell.dst, ((0, Rb - R), (0, 0)), constant_values=g.n)
+                    w = np.pad(ell.w, ((0, Rb - R), (0, 0)))
+                    row_node = np.pad(ell.row_node, (0, Rb - R), constant_values=g.n)
+                with _obs_span("pack.upload", cat="pack"):
+                    dst_d = _upload(dst, dev, torch.int64)
+                    w_d = _upload(w, dev)
+                    rn_d = _upload(row_node, dev, torch.int64)
                 self.stats.h2d_bytes += dst_d.numel() * 12 + Rb * 8
             sp.sync_on(dst_d)
         de = _DeviceEll(graph=g, dst=dst_d, w=w_d, row_node=rn_d, nb=pow2(g.n + 1))
@@ -697,27 +701,30 @@ class LPEngine:
         if region.size == 0:
             return lab, 0, cut_now(lab), self.block_weights(g, lab, k)
         # ---- region pack: host O(region) plan, device O(region m) gather
-        order = np.random.default_rng(seed).permutation(region).astype(np.int64)
-        if adjacency is not None or isinstance(g, GraphDev):
-            # region degrees gathered on the device: a fresh store handle's
-            # host degree cache is cold, and O(region) is all the plan needs
-            oi = _upload(order, dev)
-            self.stats.h2d_bytes += order.size * 4
-            deg_r = (ip[oi + 1] - ip[oi]).cpu().numpy().astype(np.int64)
-            self.stats.d2h_bytes += deg_r.nbytes // 2
-        else:
-            deg_r = g.degrees()[order]
-        nodes, node_valid, C, N, E = plan_region_pack(
-            deg_r, order, n, max_nodes=self.N,
-            max_edges=self._e_request, block=self.pack_block,
-        )
-        Cb = pow2(C)
-        Eb = max(self._repair_E, -(-E // 512) * 512)  # sticky, like E_floor
-        self._repair_E = Eb
-        nodes = np.pad(nodes, ((0, Cb - C), (0, self.N - N)), constant_values=n)
-        node_valid = np.pad(node_valid, ((0, Cb - C), (0, self.N - N)))
-        nodes_d = _upload(nodes, dev, torch.int64)
-        nv_d = _upload(node_valid, dev)
+        with _obs_span("pack.plan", cat="pack", n=int(region.size)):
+            order = np.random.default_rng(seed).permutation(region).astype(np.int64)
+            if adjacency is not None or isinstance(g, GraphDev):
+                # region degrees gathered on the device: a fresh store
+                # handle's host degree cache is cold, and O(region) is all
+                # the plan needs
+                oi = _upload(order, dev)
+                self.stats.h2d_bytes += order.size * 4
+                deg_r = (ip[oi + 1] - ip[oi]).cpu().numpy().astype(np.int64)
+                self.stats.d2h_bytes += deg_r.nbytes // 2
+            else:
+                deg_r = g.degrees()[order]
+            nodes, node_valid, C, N, E = plan_region_pack(
+                deg_r, order, n, max_nodes=self.N,
+                max_edges=self._e_request, block=self.pack_block,
+            )
+            Cb = pow2(C)
+            Eb = max(self._repair_E, -(-E // 512) * 512)  # sticky, like E_floor
+            self._repair_E = Eb
+            nodes = np.pad(nodes, ((0, Cb - C), (0, self.N - N)), constant_values=n)
+            node_valid = np.pad(node_valid, ((0, Cb - C), (0, self.N - N)))
+        with _obs_span("pack.upload", cat="pack"):
+            nodes_d = _upload(nodes, dev, torch.int64)
+            nv_d = _upload(node_valid, dev)
         self.stats.h2d_bytes += nodes.size * 4 + node_valid.nbytes
         self._note_repair_key(
             ("gather", nodes.shape, ip.shape[0], a_dst.shape[0], Eb))

@@ -41,6 +41,7 @@ import torch
 from ..device import resolve_device
 from ..graph.csr import GraphNP
 from ..graph.packing import ChunkPack, pack_chunks
+from ..obs import span as _obs_span
 
 __all__ = [
     "LPResult",
@@ -211,96 +212,97 @@ def lp_sweep_batched(
     base_gate = bases(0x2545F491) if refine_mode else None
     for it in range(iters):
         for c in range(steps):
-            if shared:
-                cc = int(perm[0, c])
-                nd, ndv, dst, ew, slot, ok = (
-                    t[cc].expand(B, -1) for t in
-                    (nodes, node_valid, edge_dst, edge_w, edge_src_slot, edge_valid)
+            with _obs_span("lp.step"):
+                if shared:
+                    cc = int(perm[0, c])
+                    nd, ndv, dst, ew, slot, ok = (
+                        t[cc].expand(B, -1) for t in
+                        (nodes, node_valid, edge_dst, edge_w, edge_src_slot, edge_valid)
+                    )
+                else:
+                    cc = perm_t[:, c]
+                    nd, ndv, dst, ew, slot, ok = (
+                        (t[row, cc] if lanes else t[cc]) for t in
+                        (nodes, node_valid, edge_dst, edge_w, edge_src_slot, edge_valid)
+                    )
+                if use_restrict:
+                    ok = ok & (restrict[dst] == restrict[nd.gather(1, slot)])
+                cand = torch.where(ok, labels.gather(1, dst).to(torch.int64), T)
+                wv = torch.where(ok, ew, 0.0)
+
+                # ---- sort-based (node, label) run reduction: slots are grouped
+                # in the pack, so the fused key orders runs like lexsort
+                key, perm_e = torch.sort(slot * A + cand, dim=-1, stable=True)
+                s_w = wv.gather(1, perm_e)
+                new_run = torch.ones_like(key, dtype=torch.bool)
+                new_run[:, 1:] = key[:, 1:] != key[:, :-1]
+                run_id = torch.cumsum(new_run, 1) - 1
+                E = key.shape[1]
+                run_w = torch.zeros((B, E), dtype=torch.float32, device=dev).scatter_add_(
+                    1, run_id, s_w
                 )
-            else:
-                cc = perm_t[:, c]
-                nd, ndv, dst, ew, slot, ok = (
-                    (t[row, cc] if lanes else t[cc]) for t in
-                    (nodes, node_valid, edge_dst, edge_w, edge_src_slot, edge_valid)
+                run_slot = torch.full((B, E), N, dtype=torch.int64, device=dev).scatter_(
+                    1, run_id, key // A
                 )
-            if use_restrict:
-                ok = ok & (restrict[dst] == restrict[nd.gather(1, slot)])
-            cand = torch.where(ok, labels.gather(1, dst).to(torch.int64), T)
-            wv = torch.where(ok, ew, 0.0)
-
-            # ---- sort-based (node, label) run reduction: slots are grouped
-            # in the pack, so the fused key orders runs like lexsort
-            key, perm_e = torch.sort(slot * A + cand, dim=-1, stable=True)
-            s_w = wv.gather(1, perm_e)
-            new_run = torch.ones_like(key, dtype=torch.bool)
-            new_run[:, 1:] = key[:, 1:] != key[:, :-1]
-            run_id = torch.cumsum(new_run, 1) - 1
-            E = key.shape[1]
-            run_w = torch.zeros((B, E), dtype=torch.float32, device=dev).scatter_add_(
-                1, run_id, s_w
-            )
-            run_slot = torch.full((B, E), N, dtype=torch.int64, device=dev).scatter_(
-                1, run_id, key // A
-            )
-            run_lbl = torch.full((B, E), T, dtype=torch.int64, device=dev).scatter_(
-                1, run_id, key % A
-            )
-
-            # ---- eligibility + scoring
-            own = labels.gather(1, nd).to(torch.int64)
-            rs = torch.clamp(run_slot, max=N - 1)
-            own_r = own.gather(1, rs)
-            node_w_r = nw_rows.gather(1, nd.gather(1, rs))
-            cand_w = weights.gather(1, torch.clamp(run_lbl, max=T))
-            fits = cand_w + node_w_r <= U
-            if refine_mode:
-                own_w = weights.gather(1, torch.clamp(own, max=T))
-                overloaded = own_w.gather(1, rs) > U
-                eligible = torch.where(
-                    overloaded,
-                    fits & (run_lbl != own_r),                      # must leave
-                    (run_w > 0) & (fits | (run_lbl == own_r)),
+                run_lbl = torch.full((B, E), T, dtype=torch.int64, device=dev).scatter_(
+                    1, run_id, key % A
                 )
-            else:
-                eligible = (run_w > 0) & (fits | (run_lbl == own_r))
-            eligible &= run_slot < N
-            jitter = hash_jitter(base_jit[it, :, c, None], run_slot, run_lbl)
-            score = torch.where(eligible, run_w + jitter, _NEG)
 
-            # ---- per-node argmax over runs, min-label tie-break
-            seg = torch.clamp(run_slot, max=N)   # runs of padded slots -> N
-            best = torch.full((B, N + 1), _NEG, dtype=torch.float32, device=dev)
-            best = best.scatter_reduce(1, seg, score, "amax", include_self=True)
-            is_best = (score >= best.gather(1, seg)) & (score > _NEG / 2)
-            win = torch.full((B, N + 1), T, dtype=torch.int64, device=dev)
-            win = win.scatter_reduce(
-                1, seg, torch.where(is_best, run_lbl, T), "amin", include_self=True
-            )[:, :N]
-            new_lbl = torch.where(ndv & (win < T), win, own)
+                # ---- eligibility + scoring
+                own = labels.gather(1, nd).to(torch.int64)
+                rs = torch.clamp(run_slot, max=N - 1)
+                own_r = own.gather(1, rs)
+                node_w_r = nw_rows.gather(1, nd.gather(1, rs))
+                cand_w = weights.gather(1, torch.clamp(run_lbl, max=T))
+                fits = cand_w + node_w_r <= U
+                if refine_mode:
+                    own_w = weights.gather(1, torch.clamp(own, max=T))
+                    overloaded = own_w.gather(1, rs) > U
+                    eligible = torch.where(
+                        overloaded,
+                        fits & (run_lbl != own_r),                      # must leave
+                        (run_w > 0) & (fits | (run_lbl == own_r)),
+                    )
+                else:
+                    eligible = (run_w > 0) & (fits | (run_lbl == own_r))
+                eligible &= run_slot < N
+                jitter = hash_jitter(base_jit[it, :, c, None], run_slot, run_lbl)
+                score = torch.where(eligible, run_w + jitter, _NEG)
 
-            moved = ndv & (new_lbl != own)
-            nwv = nw_rows.gather(1, nd)
-            if refine_mode:
-                # Influx gating: every node of a chunk sees the same stale
-                # block weights, so cap each block's net inflow at its
-                # headroom in expectation: accept an incoming mover with
-                # probability clip((U - w + outflow) / inflow, 0, 1).
-                mv_w = torch.where(moved, nwv, 0.0)
-                zero_w = torch.zeros_like(weights)
-                inflow = _add_rows(zero_w.clone(), torch.where(moved, new_lbl, T), mv_w)
-                outflow = _add_rows(zero_w, torch.where(moved, own, T), mv_w)
-                head = U - weights + outflow
-                p_in = torch.clamp(head / torch.clamp(inflow, min=1e-9), 0.0, 1.0)
-                gate_u = hash_jitter(base_gate[it, :, c, None], nd, new_lbl) / 0.49
-                moved &= gate_u < p_in.gather(1, torch.clamp(new_lbl, max=T))
-                new_lbl = torch.where(moved, new_lbl, own)
-            labels.scatter_(1, nd, torch.where(ndv, new_lbl, own).to(labels.dtype))
-            _add_rows(weights, torch.where(moved, own, T), torch.where(moved, -nwv, 0.0))
-            _add_rows(weights, torch.where(moved, new_lbl, T), torch.where(moved, nwv, 0.0))
-            # keep the sentinel weight slot at +inf (the adds above target it
-            # with value 0 for unmoved nodes)
-            weights[:, T] = float("inf")
-            moves += moved.sum(dim=1)
+                # ---- per-node argmax over runs, min-label tie-break
+                seg = torch.clamp(run_slot, max=N)   # runs of padded slots -> N
+                best = torch.full((B, N + 1), _NEG, dtype=torch.float32, device=dev)
+                best = best.scatter_reduce(1, seg, score, "amax", include_self=True)
+                is_best = (score >= best.gather(1, seg)) & (score > _NEG / 2)
+                win = torch.full((B, N + 1), T, dtype=torch.int64, device=dev)
+                win = win.scatter_reduce(
+                    1, seg, torch.where(is_best, run_lbl, T), "amin", include_self=True
+                )[:, :N]
+                new_lbl = torch.where(ndv & (win < T), win, own)
+
+                moved = ndv & (new_lbl != own)
+                nwv = nw_rows.gather(1, nd)
+                if refine_mode:
+                    # Influx gating: every node of a chunk sees the same stale
+                    # block weights, so cap each block's net inflow at its
+                    # headroom in expectation: accept an incoming mover with
+                    # probability clip((U - w + outflow) / inflow, 0, 1).
+                    mv_w = torch.where(moved, nwv, 0.0)
+                    zero_w = torch.zeros_like(weights)
+                    inflow = _add_rows(zero_w.clone(), torch.where(moved, new_lbl, T), mv_w)
+                    outflow = _add_rows(zero_w, torch.where(moved, own, T), mv_w)
+                    head = U - weights + outflow
+                    p_in = torch.clamp(head / torch.clamp(inflow, min=1e-9), 0.0, 1.0)
+                    gate_u = hash_jitter(base_gate[it, :, c, None], nd, new_lbl) / 0.49
+                    moved &= gate_u < p_in.gather(1, torch.clamp(new_lbl, max=T))
+                    new_lbl = torch.where(moved, new_lbl, own)
+                labels.scatter_(1, nd, torch.where(ndv, new_lbl, own).to(labels.dtype))
+                _add_rows(weights, torch.where(moved, own, T), torch.where(moved, -nwv, 0.0))
+                _add_rows(weights, torch.where(moved, new_lbl, T), torch.where(moved, nwv, 0.0))
+                # keep the sentinel weight slot at +inf (the adds above target it
+                # with value 0 for unmoved nodes)
+                weights[:, T] = float("inf")
+                moves += moved.sum(dim=1)
     return labels, weights, moves
 
 

@@ -401,8 +401,10 @@ def partition(g, cfg: PartitionerConfig, *, device=None, devices=None) -> Partit
         with _obs_span("vcycle.finish", cat="vcycle", n=int(g.n)):
             if cfg.fm_finest and g.n <= cfg.fm_finest_max_n:
                 lab = fm_refine(gh, lab, k, L, seed=int(rng.integers(1 << 30)))
-            lab = repair_balance(gh, lab, k, L, seed=cfg.seed)
-            c = cut_np(gh, lab)
+            with _obs_span("finish.balance", cat="finish"):
+                lab = repair_balance(gh, lab, k, L, seed=cfg.seed)
+            with _obs_span("finish.cut", cat="finish"):
+                c = cut_np(gh, lab)
         cycle_cuts.append(c)
         cur_labels = lab.astype(np.int64)
         if c < best_cut:

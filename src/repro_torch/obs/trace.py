@@ -21,7 +21,19 @@ Span names: ``vcycle.pack`` (chunk or ELL pack, host or device gather),
 ``vcycle.sweep`` (mode cluster | refine | dense), ``vcycle.contract``,
 ``vcycle.project``, ``vcycle.host`` (levels run by the numpy engine),
 ``vcycle.evolve`` (the coarsest-level GA) and ``vcycle.finish`` (the final
-balance repair and cut of each V-cycle).
+balance repair and cut of each V-cycle).  The repair of a serving update
+opens ``repair.expand``, ``repair.gather``, ``repair.sweep``,
+``repair.gain`` and ``repair.balance``.
+
+Finer spans name the host steps inside those: ``finish.balance`` and
+``finish.cut`` (the two halves of ``vcycle.finish``), ``pack.plan`` (a
+pack builder's host planning, including any host copy of a device graph
+the plan reads; the region plan of a repair too) and ``pack.upload`` (its
+host-to-device copies), and ``lp.step`` (one chunk step of
+:func:`~repro_torch.core.label_propagation.lp_sweep_batched`, inside a
+``vcycle.sweep``, ``vcycle.evolve`` or ``repair.sweep``).  No span nested
+in a ``vcycle.*`` or ``repair.*`` span takes either prefix: readers sum
+the spans of a prefix, and a child under it would be counted twice.
 
 With memory accounting on (:func:`repro_torch.obs.memory.set_accounting`),
 every span close, after its device sync, is also a watermark
