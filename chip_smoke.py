@@ -16,13 +16,19 @@ Phases, each of which fails the run:
 4. drive ``partition()`` end to end on ``rmat(19, 16)`` without its
    isolated nodes, at k=16, with dense refinement: first with the default
    ``evo_engine``, whose coarsest stage must run the batched GA on the card
-   in both V-cycles, then with the host GA.  Each run counts the kernel's
-   launches from zero and must be feasible and beat a hash partition.
+   in both V-cycles, then with the host GA.  Each run counts the kernels'
+   launches from zero and must be feasible and beat a hash partition; the
+   finish must run on the card (``repair_balance_walk`` launched once per
+   device finish whose labels have a block above L).
    Then the GA's generation step, which the fast preset skips: card == CPU
    on rmat(14, 16), and two generations on the full graph seeded with the
    run's partition, which must come out no worse than its seed;
 5. time each kernel and its plain version on the main path's own input
-   (the finest level's ELL pack with the run's labels);
+   (the finest level's ELL pack with the run's labels; the walk inputs of
+   each of phase 4's finishes, rebuilt by the prelude from the arguments it
+   got, where the kernel must equal its plain version and the host's
+   ``repair_balance`` label for label), and work out the walk's bound from
+   the latencies of its dependent chain, measured on the card;
 6. the dynamic serving subsystem (``repro_torch.dynamic``): (a) a small
    mixed stream (edge churn, node adds, node removals) under the default
    and the throughput session config, and a three-tenant ``SessionGroup``,
@@ -307,6 +313,243 @@ def path_lp_score_rows(torch, g, labels: "np.ndarray", k: int) -> dict:
     return m
 
 
+# Latency probe of the walk's dependent chain: one warp times, with clock64,
+# chains of the instructions one step of repair_balance_walk.cu waits on in
+# turn; a second kernel spins for a number of cycles, which CUDA events time
+# to give the SM clock.  Built like the port's kernels (kernels/build.py).
+_WALK_PROBE_CU = r"""
+#include <cuda_runtime.h>
+
+namespace {
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kIters = 4096;
+
+// the clock, read after dep is computed
+__device__ __forceinline__ long long clock_after(long long dep) {
+  long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t) : "l"(dep) : "memory");
+  return t;
+}
+// 0, computed from t: a chain that starts with it starts after t is read
+__device__ __forceinline__ long long zero_after(long long t) {
+  long long z;
+  asm volatile("and.b64 %0, %1, 0;" : "=l"(z) : "l"(t));
+  return z;
+}
+
+__device__ __forceinline__ void warp_min(double& v, int& i) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const double ov = __shfl_xor_sync(kFull, v, off);
+    const int oi = __shfl_xor_sync(kFull, i, off);
+    if (ov < v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+// out: cycles of kIters dependent shared loads (every lane the same
+// address), kIters dependent float64 adds, kIters / 4 warp argmins (5
+// rounds each) and kIters hand-offs (one lane stores, __syncwarp, every
+// lane loads it); out[4] is a sink
+__global__ void probe(long long* out, const int* next, double y) {
+  __shared__ int s_next[1024];
+  __shared__ double s_w[32];
+  const int lane = threadIdx.x;
+  for (int i = lane; i < 1024; i += 32) s_next[i] = next[i];
+  s_w[lane] = y;
+  __syncwarp();
+
+  long long t0 = clock_after(0);
+  int p = (int)zero_after(t0);
+#pragma unroll 16
+  for (int i = 0; i < kIters; ++i) p = s_next[p];
+  long long t1 = clock_after(p);
+
+  double x = y + (double)zero_after(t1);
+  long long t2 = clock_after(__double_as_longlong(x));
+  x += (double)zero_after(t2);
+#pragma unroll 16
+  for (int i = 0; i < kIters; ++i) x = x + y;
+  long long t3 = clock_after(__double_as_longlong(x));
+
+  double v = x * lane + (double)zero_after(t3);
+  int idx = lane;
+  long long t4 = clock_after(__double_as_longlong(v));
+  v += (double)zero_after(t4);
+#pragma unroll 4
+  for (int i = 0; i < kIters / 4; ++i) warp_min(v, idx);
+  long long t5 = clock_after(__double_as_longlong(v) + idx);
+
+  double z = v + (double)zero_after(t5);
+  long long t6 = clock_after(__double_as_longlong(z));
+  z += (double)zero_after(t6);
+#pragma unroll 16
+  for (int i = 0; i < kIters; ++i) {
+    if (lane == (i & 31)) s_w[lane] = z;
+    __syncwarp();
+    z = s_w[i & 31];
+  }
+  long long t7 = clock_after(__double_as_longlong(z));
+  if (lane == 0) {
+    out[0] = t1 - t0;
+    out[1] = t3 - t2;
+    out[2] = t5 - t4;
+    out[3] = t7 - t6;
+    out[4] = p + idx + __double_as_longlong(z);
+  }
+}
+
+__global__ void spin(long long cycles, long long* out) {
+  const long long t0 = clock64();
+  long long t = t0;
+  while (t - t0 < cycles) t = clock64();
+  out[0] = t - t0;
+}
+}  // namespace
+
+extern "C" int walk_probe_launch(void* out, const void* next, double y, void* stream) {
+  probe<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<long long*>(out), static_cast<const int*>(next), y);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int walk_spin_launch(long long cycles, void* out, void* stream) {
+  spin<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(cycles, static_cast<long long*>(out));
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def walk_chain_cycles(torch) -> dict:
+    """The latencies one step of the walk waits on, in SM cycles, measured
+    on the card by the probe above (the median of 5 runs), and the SM clock
+    under a one-warp load (a spin of 2e8 cycles timed with CUDA events)."""
+    import ctypes
+    from repro_torch.kernels import build
+
+    tmp = Path(tempfile.mkdtemp(prefix="walk_probe_"))
+    try:
+        src = tmp / "walk_latency_probe.cu"
+        src.write_text(_WALK_PROBE_CU)
+        lib = build.load(src)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    lib.walk_probe_launch.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_double, ctypes.c_void_p]
+    lib.walk_spin_launch.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    nxt = torch.roll(torch.arange(1024, dtype=torch.int32, device="cuda"), -1)
+    out = torch.zeros(5, dtype=torch.int64, device="cuda")
+    runs = []
+    for _ in range(6):   # the first warms the instruction cache
+        if lib.walk_probe_launch(out.data_ptr(), nxt.data_ptr(), 1.0, stream) != 0:
+            _fail("the walk's latency probe failed to launch")
+        runs.append(out[:4].tolist())
+    runs = sorted(runs[1:])
+    iters = 4096
+    per = [sorted(r[i] for r in runs)[2] for i in range(4)]
+    cycles = 200_000_000
+    spin_out = torch.zeros(1, dtype=torch.int64, device="cuda")
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    lib.walk_spin_launch(cycles, spin_out.data_ptr(), stream)   # warm
+    a.record()
+    lib.walk_spin_launch(cycles, spin_out.data_ptr(), stream)
+    b.record()
+    b.synchronize()
+    hz = int(spin_out[0]) / (a.elapsed_time(b) / 1e3)
+    return dict(lds=per[0] / iters, dadd=per[1] / iters, round=per[2] / (iters // 4 * 5),
+                handoff=per[3] / iters, sm_hz=hz)
+
+
+def walk_bound(lat: dict, moves: int, skips: int) -> dict:
+    """The walk's floor on one input: its dependent chain at the measured
+    latencies.  A skip waits on the candidate's block (a shared load), that
+    block's weight (a second, dependent one) and the compare; a move adds
+    the new weight (a float64 add), the owner's store, the warp barrier and
+    the rescan's load (the hand-off), the rescan's compare and the warp
+    argmin's 5 shuffle rounds.  The tile loads (one per 1,024 candidates)
+    and the loop's own instructions are left out, so it is a floor."""
+    skip = 2 * lat["lds"] + lat["dadd"]
+    move = skip + lat["dadd"] + lat["handoff"] + lat["dadd"] + 5 * lat["round"]
+    cyc = moves * move + skips * skip
+    return dict(skip_cycles=round(skip, 1), move_cycles=round(move, 1),
+                bound_ms=round(cyc / lat["sm_hz"] * 1e3, 4))
+
+
+def path_repair_balance_walk(torch, g, finishes) -> dict:
+    """repair_balance_walk on the main path's own inputs: for each of phase
+    4's device finishes whose labels had a block above L, the prelude
+    (``walk_inputs``) rebuilds the walk's inputs from the arguments the
+    finish got.  The kernel's labels and moved count must equal its plain
+    version's, and its finish the host ``repair_balance``'s, label for
+    label.  Each walk is timed (CUDA events) beside its plain version and
+    the host repair (host clock, on the CPU), against its bound
+    (:func:`walk_bound`)."""
+    import numpy as np
+    from repro_torch.core import repair_balance
+    from repro_torch.kernels.balance import (
+        repair_balance_walk,
+        repair_balance_walk_ref,
+        walk_inputs,
+    )
+
+    lat = walk_chain_cycles(torch)
+    print(f"walk chain latencies (cycles): shared load {lat['lds']:.2f}, float64 add "
+          f"{lat['dadd']:.2f}, argmin round {lat['round']:.2f}, hand-off "
+          f"{lat['handoff']:.2f}; SM clock {lat['sm_hz'] / 1e9:.4f} GHz", flush=True)
+    rows = []
+    for i, (lab, src, dst, ew, nw, n, k, L) in enumerate(finishes):
+        inp = walk_inputs(lab, src, dst, ew, nw, n, k, L)
+        if inp is None:
+            continue
+        cand, cand_lab, cand_nw, bw = inp
+        out, moved = repair_balance_walk(cand, cand_lab, cand_nw, lab, bw, L)
+        C = int(cand.shape[0])
+        t = time.perf_counter()
+        ref, ref_moved = repair_balance_walk_ref(
+            *(x.cpu() for x in (cand, cand_lab, cand_nw, lab, bw)), L)
+        plain_ms = (time.perf_counter() - t) * 1e3
+        lab_np = lab[:n].cpu().numpy()
+        t = time.perf_counter()
+        want = repair_balance(g, lab_np, k, L)
+        host_ms = (time.perf_counter() - t) * 1e3
+        got = out.cpu()
+        diff = int((got != ref).sum())
+        if diff or int(moved) != int(ref_moved):
+            _fail(f"repair_balance_walk differs from its plain version on finish {i}: "
+                  f"{diff} labels, moved {int(moved)} against {int(ref_moved)}")
+        if not np.array_equal(got[:n].numpy(), want):
+            _fail(f"the device finish differs from repair_balance on finish {i}: "
+                  f"{int((got[:n].numpy() != want).sum())} labels")
+        # the candidates walked: all, unless the last move left no block
+        # above L and the walk stopped there
+        end = torch.zeros(k, dtype=torch.float64, device=lab.device).index_add_(
+            0, torch.clamp(out, max=k - 1).long(), torch.where(out < k, nw, 0).double())
+        hit = torch.nonzero(out[cand] != cand_lab).flatten()
+        walked = C if bool((end > L).any()) or hit.numel() == 0 else int(hit[-1]) + 1
+        mv = int(moved)
+        ms = _time_ms(lambda: repair_balance_walk(cand, cand_lab, cand_nw, lab, bw, L),
+                      torch, warmup=1, batches=3, reps=3)
+        b = walk_bound(lat, mv, walked - mv)
+        row = dict(finish=i, candidates=C, walked=walked, moved=mv, ms=round(ms, 4),
+                   ns_per_candidate=round(ms * 1e6 / walked, 2),
+                   ns_per_move=round(ms * 1e6 / max(mv, 1), 2), plain_ms=round(plain_ms, 2),
+                   host_ms=round(host_ms, 2), **b,
+                   over_bound=round(ms / b["bound_ms"], 3) if b["bound_ms"] else None)
+        print(f"repair_balance_walk main-path input, finish {i} (n={n}, k={k}): "
+              f"{C} candidates, {walked} walked, {mv} moved; kernel {ms:.4f} ms "
+              f"({row['ns_per_candidate']} ns a candidate walked, {row['ns_per_move']} a "
+              f"move), plain version {plain_ms:.1f} ms and repair_balance {host_ms:.1f} ms "
+              f"on the host; bound {b['bound_ms']} ms (latency: {b['move_cycles']} cycles "
+              f"a move, {b['skip_cycles']} a skip), {row['over_bound']}x it; labels == "
+              f"plain == repair_balance", flush=True)
+        rows.append(row)
+    if not rows:
+        _fail("no finish of phase 4 had a block above L: the walk saw no input")
+    torch.cuda.empty_cache()
+    return dict(rows=rows, latency=lat)
+
+
 def check_dense_round_batched(torch, g, k: int, B: int = 4) -> None:
     """Phase 2 for the batched dense round: ``B`` label rows on the finest
     level's ELL pack, scored with one kernel launch, must equal ``B``
@@ -498,10 +741,13 @@ def make_graph(scale: int, edge_factor: int):
 
 def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
     """Phase 4: the port's main path end to end with the given GA engine;
-    the kernel's launch count is set to 0 just before and read just
-    after."""
+    the kernels' launch counts are set to 0 just before and read just
+    after, and each device finish's arguments are kept (its labels cloned)
+    for phase 5."""
+    import repro_torch.core.engine as engine_mod
     from repro_torch.core import PartitionerConfig, hash_partition, partition
     from repro_torch.core.metrics import cut_np
+    from repro_torch.kernels.balance import repair_balance_walk
     from repro_torch.kernels.lp_score import lp_score_rows
     from repro_torch.obs import Tracer, set_tracer
     cfg = PartitionerConfig(k=16, preset="fast", refine_engine="dense",
@@ -510,11 +756,16 @@ def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
     set_tracer(tracer)
     torch.cuda.synchronize()
     lp_score_rows.launches = 0
-    t = time.perf_counter()
-    rep = partition(g, cfg)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
+    repair_balance_walk.launches = 0
+    # (labels, src, dst, ew, nw, n, k, L) of each device finish
+    with _Counted(torch, engine_mod, "repair_balance_device",
+                  keep=lambda a, kw: (a[0].clone(), *a[1:])) as fin:
+        t = time.perf_counter()
+        rep = partition(g, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
     launches = lp_score_rows.launches
+    walk_launches = repair_balance_walk.launches
     set_tracer(None)
 
     k = cfg.k
@@ -527,6 +778,15 @@ def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
     print(f"{tag} cycle_cuts {rep.cycle_cuts}", flush=True)
     print(f"{tag} engine_stats {json.dumps(rep.engine_stats)}", flush=True)
     print(f"{tag} lp_score_rows launches {launches}", flush=True)
+    # a finish launches the walk iff its labels have a block above L
+    infeasible = sum(
+        bool((torch.zeros(kk + 1, dtype=torch.float64, device=lab.device).index_add_(
+            0, torch.clamp(lab, max=kk).long(), nw.double())[:kk] > L).any())
+        for lab, _s, _d, _w, nw, _n, kk, L in fin.kept)
+    finish_device = rep.engine_stats["finish_device"]
+    print(f"{tag} repair_balance_walk launches {walk_launches}; device finishes "
+          f"{finish_device} ({infeasible} with a block above L), finish_moved "
+          f"{rep.engine_stats['finish_moved']}", flush=True)
 
     # where the time went, by span (spans do not nest on this path)
     groups = {}
@@ -559,12 +819,20 @@ def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
         _fail(f"{tag} the main path never launched lp_score_rows")
     if launches != rep.engine_stats["dense_rounds"]:
         _fail(f"{tag} {launches} launches for {rep.engine_stats['dense_rounds']} dense rounds")
+    if finish_device != cfg.vcycles or fin.calls != finish_device:
+        _fail(f"{tag} {finish_device} device finishes ({fin.calls} calls) in "
+              f"{cfg.vcycles} V-cycles")
+    if walk_launches <= 0:
+        _fail(f"{tag} the main path never launched repair_balance_walk")
+    if walk_launches != infeasible:
+        _fail(f"{tag} {walk_launches} repair_balance_walk launches for {infeasible} "
+              f"finishes with a block above L")
     want_engine = "host" if evo_engine == "host" else "device"
     if len(evolves) != cfg.vcycles or any(e[0] != want_engine for e in evolves):
         _fail(f"{tag} want the {want_engine} GA in all {cfg.vcycles} V-cycles, "
               f"got {evolves}")
-    return dict(rep=rep, launches=launches, wall=wall,
-                evolve_s=sum(e[2] for e in evolves), evolves=evolves)
+    return dict(rep=rep, launches=launches, walk_launches=walk_launches, wall=wall,
+                evolve_s=sum(e[2] for e in evolves), evolves=evolves, finishes=fin.kept)
 
 
 # --------------------------------------------------------------------------
@@ -1642,20 +1910,23 @@ def check_sharded_ga_small(torch) -> None:
 
 class _Counted:
     """Counts the calls of a module function while installed, keeps the
-    first call's arguments, and records CUDA events around each, for the
-    per-call device time."""
+    first call's arguments (and ``keep(args, kwargs)`` of every call in
+    ``kept``), and records CUDA events around each, for the per-call device
+    time."""
 
-    def __init__(self, torch, module, name: str, timed: bool = False):
+    def __init__(self, torch, module, name: str, timed: bool = False, keep=None):
         self.torch, self.module, self.name = torch, module, name
         self.fn = getattr(module, name)
         self.calls, self.events, self.timed = 0, [], timed
-        self.first = None
+        self.first, self.keep, self.kept = None, keep, []
 
     def __enter__(self):
         def wrapper(*a, **kw):
             self.calls += 1
             if self.first is None:
                 self.first = (a, kw)
+            if self.keep is not None:
+                self.kept.append(self.keep(a, kw))
             if not self.timed:
                 return self.fn(*a, **kw)
             ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -3688,6 +3959,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.graph import plan_ell_rows, pow2
     from repro_torch.kernels import build
+    from repro_torch.kernels.balance import walk
     from repro_torch.kernels.lp_score import lp_score, lp_score_rows
 
     t_start = time.perf_counter()
@@ -3699,7 +3971,7 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
 
     # ---- phase 1: build every kernel from the checkout's sources
-    sources = [lp_score.SOURCE]
+    sources = [lp_score.SOURCE, walk.SOURCE]
     t = time.perf_counter()
     for src in sources:
         build.load(src)
@@ -3722,10 +3994,12 @@ def main(argv=None) -> int:
     print(f"edge-weight sum {float(g.ew.sum())} (the batched GA needs < 2^24 = "
           f"{2**24}), node-weight sum {float(g.nw.sum())}", flush=True)
     runs = {evo: run_partition(torch, g, Path(args.out), evo) for evo in ("auto", "host")}
+    finishes = runs["auto"].pop("finishes")
+    del runs["host"]["finishes"]
     print("device GA vs host GA: " + json.dumps({
         evo: dict(wall_s=round(r["wall"], 3), partition_s=round(r["rep"].seconds, 3),
                   cut=r["rep"].cut, evolve_s=round(r["evolve_s"], 4),
-                  launches=r["launches"])
+                  launches=r["launches"], walk_launches=r["walk_launches"])
         for evo, r in runs.items()}), flush=True)
     rep = runs["auto"]["rep"]
     # the GA's generation step at full width, seeded with the run's result
@@ -3733,6 +4007,8 @@ def main(argv=None) -> int:
 
     # ---- phase 5: the kernels' numbers on the main path's own input
     m = path_lp_score_rows(torch, g, rep.labels, k=16)
+    walk_m = path_repair_balance_walk(torch, g, finishes)
+    del finishes
 
     # ---- phase 6: the dynamic serving subsystem
     t = time.perf_counter()
@@ -3837,6 +4113,19 @@ def main(argv=None) -> int:
         bound_ms=m["bound_ms"],
         bound_by=m["bound_by"],
         library_ms=m["library_ms"],
+    ), dict(
+        name="repair_balance_walk",
+        route="cuda",
+        source="src/repro_torch/kernels/balance/repair_balance_walk.cu",
+        replaces="src/repro/core/initial_partition.py:83 (a host loop)",
+        launches=runs["auto"]["walk_launches"],
+        max_abs_err=0,
+        ms=walk_m["rows"][0]["ms"],
+        plain_ms=walk_m["rows"][0]["plain_ms"],
+        host_ms=walk_m["rows"][0]["host_ms"],
+        bound_ms=walk_m["rows"][0]["bound_ms"],
+        bound_by="latency",
+        inputs=walk_m["rows"],
     )]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

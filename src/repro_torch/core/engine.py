@@ -26,6 +26,10 @@ torch twin of ``repro.core.engine.LPEngine``):
   and arc tensors (a resident GraphDev is never materialized), gated by
   ``can_evolve_device``, its islands optionally split into shards over a
   device list; ``evolve_oracle`` runs its numpy oracle on the same inputs.
+* **Device finish** — ``repair_balance`` runs the V-cycle's final balance
+  repair against the finest graph's resident arena (a torch-ops prelude,
+  then the hand-written ``repair_balance_walk`` kernel), gated by
+  ``can_finish_device``.
 * **Incremental repair** — ``repair`` (the dynamic subsystem's hot path)
   sweeps a pack of the affected region only, then the region-masked rounds
   of :mod:`repro_torch.dynamic.repair`, behind a cut/feasibility guard.
@@ -56,6 +60,7 @@ from ..graph.packing import (
     plan_ell_rows,
     plan_region_pack,
 )
+from ..kernels.balance import repair_balance_device
 from ..kernels.lp_score.ops import dense_round_device
 from ..launch.mesh import pe_devices
 from ..obs import MetricsRegistry, RegistryBackedStats
@@ -131,6 +136,8 @@ class EngineStats(RegistryBackedStats):
         "h2d_bytes",            # host->device uploads the engine issued
         "d2h_bytes",            # device->host downloads (scalars + lazy
                                 # materializations of GraphDev/CoarseMap)
+        "finish_device",        # V-cycle finishes repaired and cut on the device
+        "finish_moved",         # nodes the finish's balance repair moved
     )
     _SET_FIELDS = (
         "buckets",              # distinct (C, N, E, A, W) sweep shapes
@@ -594,6 +601,26 @@ class LPEngine:
                     and float(g.nw.sum()) < 2**24
                 )
         return self._exact_weights
+
+    # ---------------------------------------------------------------- finish
+
+    def can_finish_device(self) -> bool:
+        """Whether :meth:`repair_balance` gives the host repair's labels:
+        exact weights (its per-node internal connections are float32
+        sums)."""
+        return self._weights_exact()
+
+    def repair_balance(self, g: AnyGraph, labels: Union[np.ndarray, torch.Tensor],
+                       k: int, L: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The V-cycle's final balance repair on the device, against ``g``'s
+        resident arena: :func:`~repro_torch.core.initial_partition.
+        repair_balance`'s labels (under :meth:`can_finish_device`), as new
+        arena labels, and the number of nodes moved as a device scalar."""
+        ar = self._arena(g)
+        lab = self.to_arena(labels, g.n, fill=k)
+        self.stats.finish_device += 1
+        return repair_balance_device(lab, ar.src, ar.dst, ar.ew, ar.nw_arena,
+                                     g.n, k, L)
 
     # ---------------------------------------------------------------- repair
 
@@ -1117,6 +1144,8 @@ class LPEngine:
             audit_bucket_count=self.stats.audit_bucket_count,
             h2d_bytes=self.stats.h2d_bytes,
             d2h_bytes=self.stats.d2h_bytes,
+            finish_device=self.stats.finish_device,
+            finish_moved=self.stats.finish_moved,
             arena=self.A,
             chunk_bucket=(self.C_bucket, self.N, self.E_floor),
         )

@@ -17,7 +17,9 @@ Pipeline per V-cycle:
              ``LPEngine.can_evolve_device``), the host GA otherwise;
   uncoarsen: project labels through the hierarchy, r iterations of SCLaP
              local search per level (U = L_max, random order) or dense
-             kernel-scored rounds, final feasibility repair.
+             kernel-scored rounds, final feasibility repair and cut (on
+             the device when the finest labels are still there and
+             ``LPEngine.can_finish_device`` holds, else on the host).
 
 Presets mirror the paper §V-A: *fast* (2 V-cycles, GA gets only its
 initial population), *eco* (5 V-cycles + GA generations), *minimal*.
@@ -202,7 +204,8 @@ def _uncoarsen(g, hierarchy, lab, k, L, cfg, rng, eng, devices):
     """Project + refine through the hierarchy.  On engine levels the labels
     stay on the device (projection, sweep or dense rounds, and the
     monotonicity guard's cut and balance); host and dist levels keep
-    numpy."""
+    numpy.  Returns the finest level's arena labels, still on the device,
+    when that level ran on the engine, else numpy labels."""
     lab_dev = None  # engine arena labels, device-resident once set
     for gg_f, C in reversed(hierarchy):
         seed_r = int(rng.integers(1 << 30))
@@ -246,8 +249,8 @@ def _uncoarsen(g, hierarchy, lab, k, L, cfg, rng, eng, devices):
                 if cut_np(gg_h, ref) <= before or bw_old > L >= bw_ref:
                     lab = ref
     if lab is None:
-        lab = eng.to_host(lab_dev, g.n)
-    elif isinstance(lab, torch.Tensor):  # batched-GA labels, no level above
+        return lab_dev  # the finest level's arena labels, for the finish
+    if isinstance(lab, torch.Tensor):  # batched-GA labels, no level above
         lab = lab.cpu().numpy()
     return np.asarray(lab)
 
@@ -398,13 +401,32 @@ def partition(g, cfg: PartitionerConfig, *, device=None, devices=None) -> Partit
 
         # ---------------- uncoarsening + local search ----------------
         lab = _uncoarsen(g, hierarchy, lab, k, L, cfg, rng, eng, pe_devs)
+        fm = cfg.fm_finest and g.n <= cfg.fm_finest_max_n
         with _obs_span("vcycle.finish", cat="vcycle", n=int(g.n)):
-            if cfg.fm_finest and g.n <= cfg.fm_finest_max_n:
-                lab = fm_refine(gh, lab, k, L, seed=int(rng.integers(1 << 30)))
-            with _obs_span("finish.balance", cat="finish"):
-                lab = repair_balance(gh, lab, k, L, seed=cfg.seed)
-            with _obs_span("finish.cut", cat="finish"):
-                c = cut_np(gh, lab)
+            if isinstance(lab, torch.Tensor) and not fm and eng.can_finish_device():
+                # the finest labels are still on the device: repair and cut
+                # them against the resident arena, download the result once
+                with _obs_span("finish.balance", cat="finish") as sp:
+                    lab_dev, moved = eng.repair_balance(g, lab, k, L)
+                    sp.sync_on(lab_dev)
+                with _obs_span("finish.cut", cat="finish"):
+                    c = eng.cut(g, lab_dev)
+                # the cut's sync has drained the stream: no wait of its own
+                eng.stats.finish_moved += int(moved)
+                lab = eng.to_host(lab_dev, g.n)
+                eng.stats.d2h_bytes += lab.nbytes + moved.element_size()
+            else:
+                if isinstance(lab, torch.Tensor):
+                    lab = eng.to_host(lab, g.n)
+                if fm:
+                    lab = fm_refine(gh, lab, k, L, seed=int(rng.integers(1 << 30)))
+                with _obs_span("finish.balance", cat="finish"):
+                    rep = repair_balance(gh, lab, k, L, seed=cfg.seed)
+                if eng is not None:
+                    eng.stats.finish_moved += int(np.count_nonzero(rep != lab))
+                lab = rep
+                with _obs_span("finish.cut", cat="finish"):
+                    c = cut_np(gh, lab)
         cycle_cuts.append(c)
         cur_labels = lab.astype(np.int64)
         if c < best_cut:

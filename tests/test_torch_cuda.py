@@ -17,10 +17,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import LPEngine
+from _torch_finish import CASES as FINISH_CASES
+from _torch_finish import kron19_case, make_case
+from repro_torch.core import LPEngine, PartitionerConfig, partition, repair_balance
 from repro_torch.core.evolutionary import EvoConfig
 from repro_torch.core.metrics import lmax
 from repro_torch.graph import barabasi_albert, ell_pack, rmat
+from repro_torch.kernels.balance import repair_balance_walk, shared_k_limit
 from repro_torch.kernels.lp_score import (
     dense_round_device,
     dense_round_device_batched,
@@ -430,3 +433,82 @@ def test_moe_ep_card_matches_cpu():
         if cf == 8.0:
             assert all(bool(k.all()) for k in k0)
             assert float((y0 - moe_dense(p, x, topk=2)[0]).abs().max()) < 2e-4
+
+
+def _finish_on(g, lab, k, L, device):
+    out, moved = LPEngine(g, device=device).repair_balance(g, lab, k, L)
+    return out[: g.n].cpu().numpy(), int(moved)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", [*FINISH_CASES, "kron19"])
+def test_repair_balance_walk_card_matches_host_and_twin(name):
+    """The final balance repair on the card (the prelude's device sort and
+    atomics, then the walk kernel) returns ``repair_balance``'s labels and
+    its CPU twin's, on the CPU tests' cases (k = 8192 and 40,000 take the
+    kernel's opt-in shared memory and its global variant) and on a
+    kron19-sized input where ~70 % of the nodes move."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g, lab, k, L = kron19_case() if name == "kron19" else make_case(name)
+    want = repair_balance(g, lab, k, L)
+    twin, moved_twin = _finish_on(g, lab, k, L, "cpu")
+    before = repair_balance_walk.launches
+    card, moved_card = _finish_on(g, lab, k, L, "cuda")
+    torch.cuda.synchronize()
+    feasible = name != "kron19" and FINISH_CASES[name][2] is None
+    assert repair_balance_walk.launches == before + (0 if feasible else 1)
+    np.testing.assert_array_equal(card, want)
+    np.testing.assert_array_equal(twin, want)
+    assert moved_card == moved_twin == np.count_nonzero(want != lab)
+    if name == "kron19":
+        assert moved_card > 0.6 * g.n
+
+
+@pytest.mark.cuda
+def test_repair_balance_walk_kernel_contract():
+    """The kernel on the twin's hand-made input, where the block weights
+    live (shared memory up to the card's opt-in limit, which the k = 8192
+    case needs and the k = 40,000 case outgrows), and what the wrapper
+    refuses: no blocks, wrong dtypes, mixed devices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = "cuda"
+    bw = torch.tensor([9.0, 2.0, 2.0], dtype=torch.float64, device=dev)
+    labels = torch.tensor([0, 0, 0, 0, 1, 2], dtype=torch.int32, device=dev)
+    cand = torch.tensor([3, 0, 1, 2], dtype=torch.int64, device=dev)
+    nw = torch.tensor([4.0, 1.0, 1.0, 2.0], dtype=torch.float32, device=dev)
+    out, moved = repair_balance_walk(cand, labels[cand], nw, labels, bw, 5.0)
+    assert out.tolist() == [1, 2, 1, 0, 1, 2] and int(moved) == 3
+    assert labels.tolist() == [0, 0, 0, 0, 1, 2] and bw.tolist() == [9.0, 2.0, 2.0]
+    # 48 KiB without an opt-in hold (48 - 16) KiB / 8 = 4,096 weights beside
+    # the tile; the H100 opts in to 227 KiB
+    assert 8192 <= shared_k_limit() < 40000
+    none = torch.zeros(0, dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="k=0"):
+        repair_balance_walk(cand, labels[cand], nw, labels, none, 5.0)
+    with pytest.raises(TypeError):
+        repair_balance_walk(cand, labels[cand], nw, labels.long(), bw, 5.0)
+    with pytest.raises(ValueError):
+        repair_balance_walk(cand, labels[cand], nw.cpu(), labels, bw, 5.0)
+
+
+@pytest.mark.cuda
+def test_partition_device_finish_card_matches_cpu():
+    """``partition()`` on the card repairs and cuts its finest labels on
+    the card and returns the CPU run's labels, cuts and moved count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = rmat(11, 8, seed=1)
+    cfg = dict(k=16, preset="fast", refine_engine="dense", seed=0, dense_min_n=600,
+               numpy_below=600, coarsest_factor=100)
+    cpu = partition(g, PartitionerConfig(**cfg), device="cpu")
+    before = repair_balance_walk.launches
+    card = partition(g, PartitionerConfig(**cfg), device="cuda")
+    assert repair_balance_walk.launches > before
+    np.testing.assert_array_equal(card.labels, cpu.labels)
+    assert card.cut == cpu.cut and card.cycle_cuts == cpu.cycle_cuts
+    for key in ("finish_device", "finish_moved"):
+        assert card.engine_stats[key] == cpu.engine_stats[key], key
+    assert card.engine_stats["finish_device"] > 0
+    assert card.engine_stats["finish_moved"] > 0

@@ -80,6 +80,26 @@ def test_partition_default_evo_engine_matches_reference(case, refine, k, extra):
     assert got.engine_stats["evo_calls"] == 2
 
 
+# k = 16 on this graph leaves the finest labels infeasible in both V-cycles,
+# so the device finish moves nodes
+FINISH_CASES = [("rmat", "dense", 16, dict(dense_min_n=600, numpy_below=600,
+                                           coarsest_factor=100))]
+
+
+@pytest.mark.parametrize("case,refine,k,extra", FINISH_CASES,
+                         ids=[f"{c[0]}-{c[1]}-k{c[2]}" for c in FINISH_CASES])
+def test_partition_device_finish_matches_reference(case, refine, k, extra):
+    """The finish repairs balance and cuts on the device engine (the finest
+    labels never leave it before the repair) and still returns the
+    reference's labels and cuts."""
+    kw = dict(k=k, preset="fast", refine_engine=refine, evo_engine="host", seed=0,
+              **extra)
+    got = _check(_graph(case), kw)
+    assert got.feasible
+    assert got.engine_stats["finish_device"] >= 1
+    assert got.engine_stats["finish_moved"] > 0
+
+
 def test_partition_with_initial_labels_matches_reference():
     gr = _graph("rmat")
     k = 4
