@@ -794,8 +794,7 @@ def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
     for ev in tracer.events:
         a = ev.get("args", {})
         if ev["name"] == "vcycle.pack":
-            key = "pack.host" if a.get("host") else (
-                "pack.ell" if a.get("mode") == "ell" else "pack.gather")
+            key = "pack.ell" if a.get("mode") == "ell" else "pack.gather"
         elif ev["name"] == "vcycle.sweep":
             key = f"sweep.{a.get('mode')}"
         elif ev["name"] == "vcycle.evolve":

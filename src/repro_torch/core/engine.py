@@ -10,8 +10,12 @@ torch twin of ``repro.core.engine.LPEngine``):
   padding is kept: it is what makes every move decision identical to the
   reference's.
 * **Pack caching** — chunk packs, ELL packs and per-graph arena tensors are
-  cached per ``(graph, order mode)`` and uploaded once; the finest graph's
+  cached per ``(graph, order mode)`` and built once; the finest graph's
   packs serve every V-cycle.  Coarse levels drop theirs after one use.
+* **Device pack gathers** — every pack, the finest graph's included, is
+  planned in O(n) on the host and its O(m) edge arrays gathered on the
+  device from the CSR already there (a GraphDev's own, a GraphNP's arena),
+  so the arena is a GraphNP's only O(m) upload.
 * **Device-resident refinement** — ``refine``/``refine_dense`` take and
   return arena-sized label tensors; projection, cut and block weights run
   on the device, so uncoarsening never round-trips labels through numpy.
@@ -50,12 +54,9 @@ from ..device import resolve_device
 from ..graph.csr import GraphDev, GraphNP, arc_bucket, pow2
 from ..graph.packing import (
     chunk_geometry,
-    ell_pack,
     gather_ell_device,
     gather_pack_device,
     layout_nodes,
-    pack_chunks,
-    pad_pack,
     plan_chunks,
     plan_ell_rows,
     plan_region_pack,
@@ -85,7 +86,7 @@ AnyGraph = Union[GraphNP, GraphDev]
 
 @dataclass
 class _DevicePack:
-    """A chunk pack padded to bucket shape, uploaded (or gathered) once."""
+    """A chunk pack padded to bucket shape, gathered once."""
 
     graph: AnyGraph         # strong ref: pins id(graph) for cache identity
     nodes: torch.Tensor
@@ -130,7 +131,7 @@ class EngineStats(RegistryBackedStats):
         "dense_rounds",
         "contract_calls",
         "evo_calls",            # batched GA steps (seed + generations)
-        "gather_builds",        # device pack gathers (GraphDev levels)
+        "gather_builds",        # device pack gathers (every pack build)
         "repair_calls",         # incremental repairs (dynamic subsystem)
         "audit_calls",          # invariant-audit dispatches (resilience)
         "h2d_bytes",            # host->device uploads the engine issued
@@ -288,14 +289,7 @@ class LPEngine:
             self.stats.pack_hits += 1
             return hit
         self.stats.pack_builds += 1
-        if isinstance(g, GraphDev):
-            dp = self._pack_dev(g, mode)
-        else:
-            with _obs_span(
-                "vcycle.pack", cat="vcycle", mode=mode, n=int(g.n), host=True
-            ) as sp:
-                dp = self._pack_host_build(g, mode)
-                sp.sync_on(dp.edge_valid)
+        dp = self._pack_gather(g, mode)
         _mem_account("chunk_packs", dp.nodes, dp.node_valid, dp.edge_dst,
                      dp.edge_w, dp.edge_src_slot, dp.edge_valid)
         self._packs[key] = dp
@@ -310,42 +304,21 @@ class LPEngine:
         self.E_floor = max(self.E_floor, -(-E // 512) * 512)
         return self.E_floor
 
-    def _pack_host_build(self, g: GraphNP, mode: str) -> _DevicePack:
-        with _obs_span("pack.plan", cat="pack", n=int(g.n)):
-            order = make_order(g, mode, self.seed)
-            pack = pack_chunks(
-                g, order, max_nodes=self.N,
-                max_edges=max(self._e_request, self.E_floor),
-                block=self.pack_block,
-            )
-            C = pack.nodes.shape[0]
-            Eb = self._bucket_edges(C, pack.edge_dst.shape[1])
-            padded = pad_pack(pack, self.C_bucket, self.N, Eb)
-        dev = self.device
-        with _obs_span("pack.upload", cat="pack"):
-            dp = _DevicePack(
-                graph=g,
-                nodes=_upload(padded.nodes, dev, torch.int64),
-                node_valid=_upload(padded.node_valid, dev),
-                edge_dst=_upload(padded.edge_dst, dev, torch.int64),
-                edge_w=_upload(padded.edge_w, dev),
-                edge_src_slot=_upload(padded.edge_src_slot, dev, torch.int64),
-                edge_valid=_upload(padded.edge_valid, dev),
-                num_chunks=C,
-                shape=(self.C_bucket, self.N, Eb),
-            )
-        self.stats.h2d_bytes += sum(
-            int(t.numel() * t.element_size()) for t in
-            (dp.nodes, dp.node_valid, dp.edge_dst, dp.edge_w,
-             dp.edge_src_slot, dp.edge_valid)
-        )
-        return dp
+    def _csr_dev(self, g: AnyGraph):
+        """``(indptr, indices, ew)`` of ``g`` on the device: a GraphDev's
+        own CSR, or a GraphNP's row pointers and arena arcs (its one O(m)
+        upload)."""
+        if isinstance(g, GraphDev):
+            return g.indptr, g.indices, g.ew
+        ar = self._arena(g)
+        return self._indptr_dev(g), ar.dst, ar.ew
 
-    def _pack_dev(self, g: GraphDev, mode: str) -> _DevicePack:
-        """Pack a device-resident coarse graph without materializing it:
-        the O(n) chunk plan on the host, the O(m) edge fill gathered on the
+    def _pack_gather(self, g: AnyGraph, mode: str) -> _DevicePack:
+        """Pack a graph without building its edge arrays on the host: the
+        O(n) chunk plan on the host, the O(m) edge fill gathered on the
         device from the resident CSR."""
         self.stats.gather_builds += 1
+        indptr, indices, ew = self._csr_dev(g)
         with _obs_span("pack.plan", cat="pack", n=int(g.n)):
             order = make_order(g, mode, self.seed)
             deg = g.degrees().astype(np.int64)[order]
@@ -356,30 +329,31 @@ class LPEngine:
             )
             Eb = self._bucket_edges(C, E)
             nodes, node_valid = layout_nodes(order, node_chunk, C, N, g.n)
-            # Tight pow2 LIVE-chunk prefix: the sweep only visits the live
-            # chunks, so coarse levels get their own pow2 chunk bucket
-            # instead of the finest level's (dead chunks would multiply the
-            # gather).
-            Cg = pow2(C)
-            nodes = np.pad(nodes, ((0, Cg - C), (0, self.N - N)), constant_values=g.n)
-            node_valid = np.pad(node_valid, ((0, Cg - C), (0, self.N - N)))
+            # Coarse levels take a tight pow2 LIVE-chunk prefix: the sweep
+            # only visits the live chunks, so the finest level's dead chunks
+            # would multiply their gather.  The finest graph keeps the
+            # shared chunk bucket.
+            Cb = pow2(C) if isinstance(g, GraphDev) else self.C_bucket
+            nodes = np.pad(nodes, ((0, Cb - C), (0, self.N - N)), constant_values=g.n)
+            node_valid = np.pad(node_valid, ((0, Cb - C), (0, self.N - N)))
         with _obs_span("pack.upload", cat="pack"):
             nodes_d = _upload(nodes, self.device, torch.int64)
             nv_d = _upload(node_valid, self.device)
         self.stats.h2d_bytes += nodes_d.numel() * 8 + node_valid.nbytes
-        note_new(self._gather_keys, "engine.gather",
-                 (nodes.shape, g.indptr.shape[0], g.indices.shape[0], Eb))
+        if isinstance(g, GraphDev):     # the reference gathers device levels only
+            note_new(self._gather_keys, "engine.gather",
+                     (nodes.shape, g.indptr.shape[0], g.indices.shape[0], Eb))
         with _obs_span(
             "vcycle.pack", cat="vcycle", chunks=int(C), edge_bucket=int(Eb)
         ) as sp:
             edge_dst, edge_w, edge_slot, edge_valid = gather_pack_device(
-                nodes_d, nv_d, g.indptr, g.indices, g.ew, g.n, E=Eb
+                nodes_d, nv_d, indptr, indices, ew, g.n, E=Eb
             )
             sp.sync_on(edge_valid)
         return _DevicePack(
             graph=g, nodes=nodes_d, node_valid=nv_d, edge_dst=edge_dst,
             edge_w=edge_w, edge_src_slot=edge_slot, edge_valid=edge_valid,
-            num_chunks=C, shape=(Cg, self.N, Eb),
+            num_chunks=C, shape=(Cb, self.N, Eb),
         )
 
     def _ell(self, g: AnyGraph) -> _DeviceEll:
@@ -388,43 +362,31 @@ class LPEngine:
             self.stats.pack_hits += 1
             return hit
         self.stats.pack_builds += 1
+        self.stats.gather_builds += 1
         dev = self.device
+        _, indices, ew = self._csr_dev(g)
         # Pow2 row bucket + pow2(n + 1) node bucket; padded rows are
         # sentinel-owned and weight-0, so they contribute nothing.
         with _obs_span("vcycle.pack", cat="vcycle", mode="ell", n=int(g.n)) as sp:
-            if isinstance(g, GraphDev) and g.m > 0:
-                # device ELL gather: O(n) row plan from the cached host
-                # indptr, O(m) dst/w fill from the resident CSR
-                with _obs_span("pack.plan", cat="pack", n=int(g.n)):
-                    row_node, row_first, row_end = plan_ell_rows(g._indptr_np(), g.n)
-                    R = row_node.shape[0]
-                    Rb = pow2(R)
-                    row_node = np.pad(row_node, (0, Rb - R), constant_values=g.n)
-                    row_first = np.pad(row_first, (0, Rb - R))
-                    row_end = np.pad(row_end, (0, Rb - R))
-                with _obs_span("pack.upload", cat="pack"):
-                    rn_d = _upload(row_node, dev, torch.int64)
-                    first_d = _upload(row_first, dev, torch.int64)
-                    end_d = _upload(row_end, dev, torch.int64)
-                self.stats.h2d_bytes += Rb * 24
-                self.stats.gather_builds += 1
+            # O(n) row plan from the host row pointers, O(m) dst/w fill
+            # gathered from the resident CSR
+            with _obs_span("pack.plan", cat="pack", n=int(g.n)):
+                indptr = g._indptr_np() if isinstance(g, GraphDev) else g.indptr
+                row_node, row_first, row_end = plan_ell_rows(indptr, g.n)
+                R = row_node.shape[0]
+                Rb = pow2(R)
+                row_node = np.pad(row_node, (0, Rb - R), constant_values=g.n)
+                row_first = np.pad(row_first, (0, Rb - R))
+                row_end = np.pad(row_end, (0, Rb - R))
+            with _obs_span("pack.upload", cat="pack"):
+                rn_d = _upload(row_node, dev, torch.int64)
+                first_d = _upload(row_first, dev, torch.int64)
+                end_d = _upload(row_end, dev, torch.int64)
+            self.stats.h2d_bytes += Rb * 24
+            if isinstance(g, GraphDev) and g.m > 0:  # the reference's gather keys
                 note_new(self._gather_keys, "engine.gather",
                          ("ell", Rb, g.indices.shape[0]))
-                dst_d, w_d = gather_ell_device(first_d, end_d, g.indices, g.ew, g.n)
-            else:
-                with _obs_span("pack.plan", cat="pack", n=int(g.n)):
-                    gh = g.to_host() if isinstance(g, GraphDev) else g
-                    ell = ell_pack(gh)
-                    R = ell.rows
-                    Rb = pow2(R)
-                    dst = np.pad(ell.dst, ((0, Rb - R), (0, 0)), constant_values=g.n)
-                    w = np.pad(ell.w, ((0, Rb - R), (0, 0)))
-                    row_node = np.pad(ell.row_node, (0, Rb - R), constant_values=g.n)
-                with _obs_span("pack.upload", cat="pack"):
-                    dst_d = _upload(dst, dev, torch.int64)
-                    w_d = _upload(w, dev)
-                    rn_d = _upload(row_node, dev, torch.int64)
-                self.stats.h2d_bytes += dst_d.numel() * 12 + Rb * 8
+            dst_d, w_d = gather_ell_device(first_d, end_d, indices, ew, g.n)
             sp.sync_on(dst_d)
         de = _DeviceEll(graph=g, dst=dst_d, w=w_d, row_node=rn_d, nb=pow2(g.n + 1))
         _mem_account("chunk_packs", de.dst, de.w, de.row_node)

@@ -16,7 +16,9 @@ Host planners (numpy, array-for-array identical to ``repro.graph.packing``):
 
 Device gathers (torch): :func:`gather_pack_device` and
 :func:`gather_ell_device` fill the O(m) edge arrays of a host plan from a
-still-resident :class:`~repro_torch.graph.csr.GraphDev` CSR.
+device-resident CSR (a :class:`~repro_torch.graph.csr.GraphDev`'s, or the
+engine's upload of a :class:`~repro_torch.graph.csr.GraphNP`), in groups
+under :data:`GATHER_BUDGET_BYTES`.
 
 Pack invariants (relied upon by the sweep): within a chunk, valid arcs are
 grouped by source slot in non-decreasing slot order; padded arcs trail with
@@ -49,11 +51,27 @@ __all__ = [
     "ShardedGraph",
     "shard_graph",
     "ELL_WIDTH",
+    "GATHER_BUDGET_BYTES",
 ]
 
 #: Slots per row of the dense path's ELL pack, and the multiple that
 #: ``pad_k`` rounds a block count up to: the reference's lane width (128).
 ELL_WIDTH = 128
+
+#: Device bytes of temporaries a gather may hold beyond its outputs:
+#: :func:`gather_pack_device` and :func:`gather_ell_device` split a larger
+#: input into groups of whole chunks (every lane) or rows that each stay
+#: under it, so building the finest graph's packs adds no peak of its own.
+#: A smaller input, such as a region pack or a small coarse level, is one
+#: group.
+GATHER_BUDGET_BYTES = 64 << 20
+
+# Upper bounds on the bytes a gather holds per output slot (arc or ELL
+# slot) of a group, and per node slot of a chunk plan through the groups
+# (before them, at most 48 while they are computed).
+_PACK_SLOT_BYTES = 32
+_PACK_NODE_BYTES = 24
+_ELL_SLOT_BYTES = 24
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -244,6 +262,36 @@ def plan_region_pack(
     return nodes, node_valid, C, N, E
 
 
+def _pack_group(starts, start_off, tot, indices, ew, n_t, e_iota, outs) -> None:
+    """The arc fill of one group of whole chunks (every lane) of
+    :func:`gather_pack_device`, written into ``outs``, the group's slices
+    of the four outputs.  At most ``_PACK_SLOT_BYTES`` per arc slot are
+    alive at once: temporaries are updated in place and freed before the
+    next one is made."""
+    dst_o, w_o, slot_o, valid_o = outs
+    B, c, _ = starts.shape
+    E = e_iota.shape[0]
+    # slot owning arc e == the last slot whose first arc is <= e (an empty
+    # slot shares its offset with its successor; padded slots trail with
+    # the chunk's total)
+    slot = torch.searchsorted(start_off, e_iota.expand(B, c, E).contiguous(),
+                              right=True)
+    slot -= 1
+    slot.clamp_(min=0)
+    valid = e_iota < tot
+    invalid = ~valid
+    pos = torch.gather(starts, 2, slot)
+    pos -= torch.gather(start_off, 2, slot)
+    pos += e_iota
+    pos.masked_fill_(invalid, 0)
+    slot_o.copy_(slot.masked_fill_(invalid, 0))
+    del slot
+    valid_o.copy_(valid)
+    pos = pos.view(B, c * E)
+    torch.where(valid, indices.gather(1, pos).view(B, c, E), n_t, out=dst_o)
+    w_o.copy_(ew.gather(1, pos).view(B, c, E).masked_fill_(invalid, 0.0))
+
+
 def gather_pack_device(
     nodes: torch.Tensor,       # (C, N) int64 — host-planned layout, sentinel n
     node_valid: torch.Tensor,  # (C, N) bool
@@ -260,7 +308,9 @@ def gather_pack_device(
     :func:`pack_chunks` produces on the materialized graph.  With a leading
     lane axis — ``nodes``/``node_valid`` ``(B, C, N)``, ``indptr``,
     ``indices``, ``ew`` ``(B, ...)`` and ``n`` a ``(B,)`` tensor — each lane
-    gathers from its own CSR and the outputs are ``(B, C, E)``.
+    gathers from its own CSR and the outputs are ``(B, C, E)``.  Groups of
+    whole chunks, every lane, fill the outputs one after another, each
+    under :data:`GATHER_BUDGET_BYTES` of temporaries.
     """
     if nodes.dim() == 2:
         out = gather_pack_device(
@@ -270,35 +320,38 @@ def gather_pack_device(
         return tuple(t[0] for t in out)
     dev = nodes.device
     B, C, N = nodes.shape
+    n_t = torch.as_tensor(n, device=dev).view(B, 1, 1)
+    edge_dst = n_t.to(torch.promote_types(indices.dtype, n_t.dtype)).expand(
+        B, C, E).contiguous()
+    edge_w = torch.zeros((B, C, E), dtype=ew.dtype, device=dev)
+    edge_src_slot = torch.zeros((B, C, E), dtype=torch.int64, device=dev)
+    edge_valid = torch.zeros((B, C, E), dtype=torch.bool, device=dev)
+    if indices.shape[-1] == 0:      # no arcs: every slot is padding
+        return edge_dst, edge_w, edge_src_slot, edge_valid
+    # node slots, once for every chunk: each slot's first arc in the CSR
+    # and in its chunk, and each chunk's arc count
     last = indptr.shape[-1] - 1
     flat_nodes = nodes.reshape(B, C * N)
     starts = indptr.gather(1, flat_nodes).view(B, C, N)
-    ends = indptr.gather(1, torch.clamp(flat_nodes + 1, max=last)).view(B, C, N)
-    deg = torch.where(node_valid, ends - starts, 0)
-    cum = torch.cumsum(deg, dim=2)
-    tot = cum[..., -1]
+    deg = indptr.gather(1, torch.clamp(flat_nodes + 1, max=last)).view(B, C, N)
+    deg -= starts
+    deg.masked_fill_(~node_valid, 0)
+    start_off = torch.cumsum(deg, dim=2)
+    tot = start_off[..., -1:].clone()
+    start_off -= deg
+    del deg
     e_iota = torch.arange(E, dtype=torch.int64, device=dev)
-    # slot owning arc e == (#slot starts <= e) - 1: one mark per slot at its
-    # first-arc offset, then a running count along the arc axis (empty
-    # slots mark the same offset as their successor)
-    start_off = cum - deg
-    flat = (torch.arange(B * C, dtype=torch.int64, device=dev)[:, None] * E
-            + start_off.reshape(B * C, N)).reshape(-1)
-    keep = (node_valid & (start_off < E)).reshape(-1)
-    flat = torch.where(keep, flat, B * C * E)    # slot B * C * E is dropped
-    marks = torch.zeros(B * C * E + 1, dtype=torch.int64, device=dev)
-    marks.index_add_(0, flat, torch.ones_like(flat))
-    slot = torch.cumsum(marks[: B * C * E].view(B, C, E), dim=2) - 1
-    valid_e = e_iota < tot[..., None]
-    slot_c = torch.clamp(slot, 0, N - 1)
-    before = torch.gather(start_off, 2, slot_c)
-    pos = torch.gather(starts, 2, slot_c) + (e_iota - before)
-    pos = torch.where(valid_e, pos, 0).view(B, C * E)
-    n_t = torch.as_tensor(n, device=dev).view(B, 1, 1)
-    edge_dst = torch.where(valid_e, indices.gather(1, pos).view(B, C, E), n_t)
-    edge_w = torch.where(valid_e, ew.gather(1, pos).view(B, C, E), 0.0)
-    edge_src_slot = torch.where(valid_e, slot_c, 0)
-    return edge_dst, edge_w, edge_src_slot, valid_e
+    free = GATHER_BUDGET_BYTES - B * C * N * _PACK_NODE_BYTES
+    step = max(1, free // (B * E * _PACK_SLOT_BYTES))
+    for c0 in range(0, C, step):
+        cs = slice(c0, min(C, c0 + step))
+        _pack_group(
+            starts[:, cs], start_off[:, cs].contiguous(), tot[:, cs], indices, ew,
+            n_t, e_iota,
+            (edge_dst[:, cs], edge_w[:, cs], edge_src_slot[:, cs],
+             edge_valid[:, cs]),
+        )
+    return edge_dst, edge_w, edge_src_slot, edge_valid
 
 
 @dataclass(frozen=True)
@@ -356,14 +409,25 @@ def gather_ell_device(
     width: int = ELL_WIDTH,
 ):
     """Device edge fill for an ELL row plan: ``dst``/``w`` equal to
-    :func:`ell_pack` on the materialized graph."""
-    pos = row_first[:, None] + torch.arange(
-        width, dtype=torch.int64, device=row_first.device
-    )[None, :]
-    valid = pos < row_end[:, None]
-    pos_c = torch.clamp(pos, 0, indices.shape[0] - 1)
-    dst = torch.where(valid, indices[pos_c], n)
-    w = torch.where(valid, ew[pos_c], 0.0)
+    :func:`ell_pack` on the materialized graph.  Groups of rows fill the
+    outputs one after another, each under :data:`GATHER_BUDGET_BYTES` of
+    temporaries."""
+    dev = row_first.device
+    R = row_first.shape[0]
+    dst = torch.full((R, width), int(n), dtype=indices.dtype, device=dev)
+    w = torch.zeros((R, width), dtype=ew.dtype, device=dev)
+    M = indices.shape[0]
+    if M == 0:                      # no arcs: every slot is padding
+        return dst, w
+    iota = torch.arange(width, dtype=torch.int64, device=dev)
+    step = max(1, GATHER_BUDGET_BYTES // (width * _ELL_SLOT_BYTES))
+    for r0 in range(0, R, step):
+        rs = slice(r0, min(R, r0 + step))
+        pos = row_first[rs, None] + iota
+        invalid = pos >= row_end[rs, None]
+        pos.clamp_(0, M - 1)
+        dst[rs] = indices[pos].masked_fill_(invalid, int(n))
+        w[rs] = ew[pos].masked_fill_(invalid, 0.0)
     return dst, w
 
 

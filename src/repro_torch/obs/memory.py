@@ -578,8 +578,7 @@ KNOWN_ALLOC_SITES: Dict[str, str] = {
     "core/engine.py::_generations": "evo_population",
     "core/engine.py::_indptr_dev": "base_csr",
     "core/engine.py::_iota": "label_arenas",
-    "core/engine.py::_pack_dev": "chunk_packs",
-    "core/engine.py::_pack_host_build": "chunk_packs",
+    "core/engine.py::_pack_gather": "chunk_packs",
     "core/engine.py::contract": "base_csr",
     "core/engine.py::evolve_device": "evo_population",
     "core/engine.py::project": "label_arenas",

@@ -512,3 +512,64 @@ def test_partition_device_finish_card_matches_cpu():
         assert card.engine_stats[key] == cpu.engine_stats[key], key
     assert card.engine_stats["finish_device"] > 0
     assert card.engine_stats["finish_moved"] > 0
+
+
+@pytest.mark.cuda
+def test_finest_pack_gathers_match_host_packers_within_budget():
+    """The finest graph's chunk packs and ELL, gathered on the card from
+    its resident CSR, equal the host packers' arrays on a 2^17-node rmat,
+    and building each raises the peak above its outputs by no more than
+    ``GATHER_BUDGET_BYTES``, though one ungrouped gather would exceed it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import repro_torch.graph.packing as TP
+    from repro_torch.core.label_propagation import make_order
+    from repro_torch.graph import pow2
+
+    g = rmat(17, 16, seed=1)
+    assert g.n >= 2**17
+    eng = LPEngine(g, device="cuda")
+    eng._csr_dev(g)                  # the resident CSR, built before the peaks
+    torch.cuda.synchronize()
+    buckets = [eng.C_bucket, eng.E_floor]
+
+    def build(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - base
+
+    for mode in ("degree", "random"):
+        dp, peak = build(lambda: eng._pack(g, mode))
+        order = make_order(g, mode, eng.seed)
+        pack = TP.pack_chunks(g, order, max_nodes=eng.N,
+                              max_edges=max(eng._e_request, buckets[1]),
+                              block=eng.pack_block)
+        buckets[0] = max(buckets[0], pow2(pack.nodes.shape[0]))
+        buckets[1] = max(buckets[1], -(-pack.edge_dst.shape[1] // 512) * 512)
+        want = TP.pad_pack(pack, buckets[0], eng.N, buckets[1])
+        assert dp.shape == (buckets[0], eng.N, buckets[1])
+        outs = [getattr(dp, f) for f in ("nodes", "node_valid", "edge_dst", "edge_w",
+                                         "edge_src_slot", "edge_valid")]
+        for got, f in zip(outs, ("nodes", "node_valid", "edge_dst", "edge_w",
+                                 "edge_src_slot", "edge_valid")):
+            np.testing.assert_array_equal(got.cpu().numpy(), getattr(want, f), err_msg=f)
+        out_bytes = sum(t.numel() * t.element_size() for t in outs)
+        slots = dp.shape[0] * dp.shape[2]
+        assert slots * TP._PACK_SLOT_BYTES > 2 * TP.GATHER_BUDGET_BYTES
+        assert peak - out_bytes <= TP.GATHER_BUDGET_BYTES, (mode, peak, out_bytes)
+    de, peak = build(lambda: eng._ell(g))
+    ell = TP.ell_pack(g)
+    R, Rb = ell.rows, de.dst.shape[0]
+    assert Rb == pow2(R)
+    np.testing.assert_array_equal(
+        de.dst.cpu().numpy(), np.pad(ell.dst, ((0, Rb - R), (0, 0)), constant_values=g.n))
+    np.testing.assert_array_equal(de.w.cpu().numpy(), np.pad(ell.w, ((0, Rb - R), (0, 0))))
+    np.testing.assert_array_equal(
+        de.row_node.cpu().numpy(), np.pad(ell.row_node, (0, Rb - R), constant_values=g.n))
+    out_bytes = sum(t.numel() * t.element_size() for t in (de.dst, de.w, de.row_node))
+    assert Rb * TP.ELL_WIDTH * TP._ELL_SLOT_BYTES > 2 * TP.GATHER_BUDGET_BYTES
+    assert peak - out_bytes <= TP.GATHER_BUDGET_BYTES, ("ell", peak, out_bytes)
+    assert eng.stats.gather_builds == eng.stats.pack_builds == 3

@@ -44,8 +44,8 @@ def _graph():
 
 def _cfg(engine):
     # every level on the device engine, the dense rounds from 128 nodes:
-    # both ELL branches (host pack of the finest level, device gather of
-    # the coarse ones) and both chunk-pack builders run
+    # the ELL and chunk-pack gathers of the finest level and of the coarse
+    # ones run
     return PartitionerConfig(k=4, preset="fast", coarsest_factor=30, numpy_below=128,
                              dense_min_n=128, refine_engine=engine)
 

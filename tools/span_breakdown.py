@@ -31,8 +31,7 @@ def group_of(ev: dict) -> str:
     """The group a span belongs to, as ``chip_smoke.py`` prints them."""
     a = ev.get("args", {})
     if ev["name"] == "vcycle.pack":
-        return "pack.host" if a.get("host") else (
-            "pack.ell" if a.get("mode") == "ell" else "pack.gather")
+        return "pack.ell" if a.get("mode") == "ell" else "pack.gather"
     if ev["name"] == "vcycle.sweep":
         return f"sweep.{a.get('mode')}"
     if ev["name"] == "vcycle.evolve":
