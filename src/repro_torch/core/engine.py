@@ -9,13 +9,16 @@ torch twin of ``repro.core.engine.LPEngine``):
   Torch runs eagerly, so the buckets no longer save compilations, but the
   padding is kept: it is what makes every move decision identical to the
   reference's.
+* **One device form** — every graph the engine sees is a
+  :class:`~repro_torch.graph.csr.GraphDev`: a caller's ``GraphNP`` is
+  lifted once by ``to_device_csr`` (born in its contraction bucket, its
+  host arrays kept as the handle's mirror) and cached until ``evict``.
 * **Pack caching** — chunk packs, ELL packs and per-graph arena tensors are
   cached per ``(graph, order mode)`` and built once; the finest graph's
   packs serve every V-cycle.  Coarse levels drop theirs after one use.
 * **Device pack gathers** — every pack, the finest graph's included, is
   planned in O(n) on the host and its O(m) edge arrays gathered on the
-  device from the CSR already there (a GraphDev's own, a GraphNP's arena),
-  so the arena is a GraphNP's only O(m) upload.
+  device from the graph's resident CSR, its only O(m) upload.
 * **Device-resident refinement** — ``refine``/``refine_dense`` take and
   return arena-sized label tensors; projection, cut and block weights run
   on the device, so uncoarsening never round-trips labels through numpy.
@@ -35,8 +38,9 @@ torch twin of ``repro.core.engine.LPEngine``):
   then the hand-written ``repair_balance_walk`` kernel), gated by
   ``can_finish_device``.
 * **Incremental repair** — ``repair`` (the dynamic subsystem's hot path)
-  sweeps a pack of the affected region only, then the region-masked rounds
-  of :mod:`repro_torch.dynamic.repair`, behind a cut/feasibility guard.
+  stages one lane (``repair_lane``) for
+  :func:`repro_torch.dynamic.repair.repair_lanes`, the region repair a
+  ``SessionGroup`` runs over many lanes.
 
 Every tensor lives on ``device`` (CUDA unless the caller asks for the
 CPU).  Engine state is per run; it is not thread-safe.
@@ -51,7 +55,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..graph.csr import GraphDev, GraphNP, arc_bucket, pow2
+from ..graph.csr import GraphDev, GraphNP, arc_bucket, pow2, to_device_csr
 from ..graph.packing import (
     chunk_geometry,
     gather_ell_device,
@@ -59,7 +63,6 @@ from ..graph.packing import (
     layout_nodes,
     plan_chunks,
     plan_ell_rows,
-    plan_region_pack,
 )
 from ..kernels.balance import repair_balance_device
 from ..kernels.lp_score.ops import dense_round_device
@@ -76,7 +79,7 @@ from .evo_device import (
     evo_seed_step,
 )
 from .evolutionary import EvoInputs, evolve_batched_numpy, grow_rounds_bound
-from .label_propagation import hash_base_u32, lp_sweep, make_order
+from .label_propagation import lp_sweep, make_order
 from .metrics import cut_from_arcs
 
 __all__ = ["LPEngine", "EngineStats"]
@@ -88,7 +91,7 @@ AnyGraph = Union[GraphNP, GraphDev]
 class _DevicePack:
     """A chunk pack padded to bucket shape, gathered once."""
 
-    graph: AnyGraph         # strong ref: pins id(graph) for cache identity
+    graph: GraphDev         # strong ref: pins id(graph) for cache identity
     nodes: torch.Tensor
     node_valid: torch.Tensor
     edge_dst: torch.Tensor
@@ -103,17 +106,14 @@ class _DevicePack:
 class _Arena:
     """Per-graph device tensors shared by every sweep over that graph."""
 
-    graph: AnyGraph
+    graph: GraphDev
     nw_arena: torch.Tensor  # (A,) f32 — node weights, 0 beyond n
     cluster_w: torch.Tensor  # (A,) f32 — per-node weights, +inf beyond n
-    src: torch.Tensor       # (>= m,) int64 — arc sources (padding carries w 0)
-    dst: torch.Tensor       # (>= m,) int64
-    ew: torch.Tensor        # (>= m,) f32
 
 
 @dataclass
 class _DeviceEll:
-    graph: AnyGraph
+    graph: GraphDev
     dst: torch.Tensor       # (Rb, W) int64 — rows padded to a pow2 bucket
     w: torch.Tensor         # (Rb, W) f32
     row_node: torch.Tensor  # (Rb,) int64, sentinel n
@@ -212,9 +212,9 @@ class LPEngine:
         self._packs: Dict[Tuple[int, str], _DevicePack] = {}
         self._arenas: Dict[int, _Arena] = {}
         self._ells: Dict[int, _DeviceEll] = {}
-        self._cin: Dict[int, tuple] = {}    # padded contraction inputs (GraphNP)
         self._degs: Dict[int, tuple] = {}   # (graph, (Ab,) f32 degrees) for the GA
-        self._indptrs: Dict[int, tuple] = {}  # (graph, device row ptrs) of a GraphNP
+        # id(host graph) -> (host graph, its device form): the caller's GraphNPs
+        self._lifts: Dict[int, Tuple[GraphNP, GraphDev]] = {}
         self._repair_E = 0                  # sticky region-pack edge bucket
         self._iota_cache: Optional[torch.Tensor] = None
         # shape keys noted to the watchdog (the reference's compile keys)
@@ -245,44 +245,46 @@ class LPEngine:
 
     # ------------------------------------------------------------------ caches
 
+    def _dev(self, g: AnyGraph) -> GraphDev:
+        """The one device form of a graph: a GraphDev passes through; a
+        GraphNP is uploaded once by :func:`to_device_csr` (which keeps it as
+        the handle's host mirror, so it never downloads) and cached, its
+        strong reference pinning the id, until :meth:`evict`."""
+        if isinstance(g, GraphDev):
+            return g
+        hit = self._lifts.get(id(g))
+        if hit is None:
+            gd = to_device_csr(g, self.device)
+            self.stats.h2d_bytes += sum(
+                t.numel() * t.element_size()
+                for t in (gd.indptr, gd.indices, gd.ew, gd.nw, gd.src))
+            if g is self._g0:
+                self._g0_id = id(gd)
+            hit = self._lifts[id(g)] = (g, gd)
+        return hit[1]
+
+    def _host_form(self, g: GraphDev) -> bool:
+        """Whether the caller handed ``g`` in host form: such a graph packs
+        into the shared chunk bucket, and the reference names its exact
+        shapes (not its buckets) where it notes gather and repair keys."""
+        return any(gd is g for _, gd in self._lifts.values())
+
     def _arena(self, g: AnyGraph) -> _Arena:
+        g = self._dev(g)
         hit = self._arenas.get(id(g))
         if hit is not None and hit.graph is g:
             return hit
-        n = g.n
-        if isinstance(g, GraphDev):
-            # tensors are already resident and inert beyond (n, m): extend
-            # to the arena on the device
-            nw_arena = torch.cat(
-                [g.nw, g.nw.new_zeros(self.A - g.nw.shape[0])]
-            )
-            cw = torch.where(self._iota < n, nw_arena, float("inf"))
-            ar = _Arena(
-                graph=g, nw_arena=nw_arena, cluster_w=cw,
-                src=g.src, dst=g.indices, ew=g.ew,
-            )
-        else:
-            nw = np.zeros(self.A, np.float32)
-            nw[:n] = g.nw
-            cw = np.full(self.A, np.inf, np.float32)
-            cw[:n] = g.nw
-            ar = _Arena(
-                graph=g,
-                nw_arena=_upload(nw, self.device),
-                cluster_w=_upload(cw, self.device),
-                src=_upload(g.arc_sources(), self.device, torch.int64),
-                dst=_upload(g.indices, self.device, torch.int64),
-                ew=_upload(g.ew, self.device, torch.float32),
-            )
-            self.stats.h2d_bytes += self.A * 8 + g.m * 12
-        # a GraphDev's src/dst/ew are base_csr already: storage-keyed
-        # registration counts them once
+        # node weights are already resident and 0 beyond n: extend to the
+        # arena on the device
+        nw_arena = torch.cat([g.nw, g.nw.new_zeros(self.A - g.nw.shape[0])])
+        cw = torch.where(self._iota < g.n, nw_arena, float("inf"))
+        ar = _Arena(graph=g, nw_arena=nw_arena, cluster_w=cw)
         _mem_account("label_arenas", ar.nw_arena, ar.cluster_w)
-        _mem_account("base_csr", ar.src, ar.dst, ar.ew)
         self._arenas[id(g)] = ar
         return ar
 
     def _pack(self, g: AnyGraph, mode: str) -> _DevicePack:
+        g = self._dev(g)
         key = (id(g), mode)
         hit = self._packs.get(key)
         if hit is not None and hit.graph is g:
@@ -304,21 +306,12 @@ class LPEngine:
         self.E_floor = max(self.E_floor, -(-E // 512) * 512)
         return self.E_floor
 
-    def _csr_dev(self, g: AnyGraph):
-        """``(indptr, indices, ew)`` of ``g`` on the device: a GraphDev's
-        own CSR, or a GraphNP's row pointers and arena arcs (its one O(m)
-        upload)."""
-        if isinstance(g, GraphDev):
-            return g.indptr, g.indices, g.ew
-        ar = self._arena(g)
-        return self._indptr_dev(g), ar.dst, ar.ew
-
-    def _pack_gather(self, g: AnyGraph, mode: str) -> _DevicePack:
+    def _pack_gather(self, g: GraphDev, mode: str) -> _DevicePack:
         """Pack a graph without building its edge arrays on the host: the
         O(n) chunk plan on the host, the O(m) edge fill gathered on the
         device from the resident CSR."""
         self.stats.gather_builds += 1
-        indptr, indices, ew = self._csr_dev(g)
+        host_form = self._host_form(g)
         with _obs_span("pack.plan", cat="pack", n=int(g.n)):
             order = make_order(g, mode, self.seed)
             deg = g.degrees().astype(np.int64)[order]
@@ -331,23 +324,23 @@ class LPEngine:
             nodes, node_valid = layout_nodes(order, node_chunk, C, N, g.n)
             # Coarse levels take a tight pow2 LIVE-chunk prefix: the sweep
             # only visits the live chunks, so the finest level's dead chunks
-            # would multiply their gather.  The finest graph keeps the
-            # shared chunk bucket.
-            Cb = pow2(C) if isinstance(g, GraphDev) else self.C_bucket
+            # would multiply their gather.  The finest graph (a caller's host
+            # graph) keeps the shared chunk bucket.
+            Cb = self.C_bucket if host_form else pow2(C)
             nodes = np.pad(nodes, ((0, Cb - C), (0, self.N - N)), constant_values=g.n)
             node_valid = np.pad(node_valid, ((0, Cb - C), (0, self.N - N)))
         with _obs_span("pack.upload", cat="pack"):
             nodes_d = _upload(nodes, self.device, torch.int64)
             nv_d = _upload(node_valid, self.device)
         self.stats.h2d_bytes += nodes_d.numel() * 8 + node_valid.nbytes
-        if isinstance(g, GraphDev):     # the reference gathers device levels only
+        if not host_form:     # the reference gathers device levels only
             note_new(self._gather_keys, "engine.gather",
                      (nodes.shape, g.indptr.shape[0], g.indices.shape[0], Eb))
         with _obs_span(
             "vcycle.pack", cat="vcycle", chunks=int(C), edge_bucket=int(Eb)
         ) as sp:
             edge_dst, edge_w, edge_slot, edge_valid = gather_pack_device(
-                nodes_d, nv_d, indptr, indices, ew, g.n, E=Eb
+                nodes_d, nv_d, g.indptr, g.indices, g.ew, g.n, E=Eb
             )
             sp.sync_on(edge_valid)
         return _DevicePack(
@@ -357,6 +350,7 @@ class LPEngine:
         )
 
     def _ell(self, g: AnyGraph) -> _DeviceEll:
+        g = self._dev(g)
         hit = self._ells.get(id(g))
         if hit is not None and hit.graph is g:
             self.stats.pack_hits += 1
@@ -364,15 +358,13 @@ class LPEngine:
         self.stats.pack_builds += 1
         self.stats.gather_builds += 1
         dev = self.device
-        _, indices, ew = self._csr_dev(g)
         # Pow2 row bucket + pow2(n + 1) node bucket; padded rows are
         # sentinel-owned and weight-0, so they contribute nothing.
         with _obs_span("vcycle.pack", cat="vcycle", mode="ell", n=int(g.n)) as sp:
             # O(n) row plan from the host row pointers, O(m) dst/w fill
             # gathered from the resident CSR
             with _obs_span("pack.plan", cat="pack", n=int(g.n)):
-                indptr = g._indptr_np() if isinstance(g, GraphDev) else g.indptr
-                row_node, row_first, row_end = plan_ell_rows(indptr, g.n)
+                row_node, row_first, row_end = plan_ell_rows(g._indptr_np(), g.n)
                 R = row_node.shape[0]
                 Rb = pow2(R)
                 row_node = np.pad(row_node, (0, Rb - R), constant_values=g.n)
@@ -383,17 +375,17 @@ class LPEngine:
                 first_d = _upload(row_first, dev, torch.int64)
                 end_d = _upload(row_end, dev, torch.int64)
             self.stats.h2d_bytes += Rb * 24
-            if isinstance(g, GraphDev) and g.m > 0:  # the reference's gather keys
+            if not self._host_form(g) and g.m > 0:  # the reference's gather keys
                 note_new(self._gather_keys, "engine.gather",
                          ("ell", Rb, g.indices.shape[0]))
-            dst_d, w_d = gather_ell_device(first_d, end_d, indices, ew, g.n)
+            dst_d, w_d = gather_ell_device(first_d, end_d, g.indices, g.ew, g.n)
             sp.sync_on(dst_d)
         de = _DeviceEll(graph=g, dst=dst_d, w=w_d, row_node=rn_d, nb=pow2(g.n + 1))
         _mem_account("chunk_packs", de.dst, de.w, de.row_node)
         self._ells[id(g)] = de
         return de
 
-    def _drop_single_use(self, g: AnyGraph, mode: str) -> None:
+    def _drop_single_use(self, g: GraphDev, mode: str) -> None:
         """Release a coarse level's pack right after its one use: only the
         finest graph's packs are re-hit (coarse graphs are rebuilt every
         V-cycle).  Arenas stay until the cycle-end ``evict``."""
@@ -401,14 +393,14 @@ class LPEngine:
             self._packs.pop((id(g), mode), None)
 
     def evict(self, keep: Tuple[AnyGraph, ...] = ()) -> None:
-        """Drop cached packs/arenas/ELLs of all graphs not in ``keep``."""
-        keep_ids = {id(g) for g in keep}
+        """Drop cached lifts/packs/arenas/ELLs of all graphs not in ``keep``."""
+        held = {id(g) for g in keep}
+        self._lifts = {k: v for k, v in self._lifts.items() if k in held}
+        keep_ids = held | {id(gd) for _, gd in self._lifts.values()}
         self._packs = {k: v for k, v in self._packs.items() if k[0] in keep_ids}
         self._arenas = {k: v for k, v in self._arenas.items() if k in keep_ids}
         self._ells = {k: v for k, v in self._ells.items() if k in keep_ids}
-        self._cin = {k: v for k, v in self._cin.items() if k in keep_ids}
         self._degs = {k: v for k, v in self._degs.items() if k in keep_ids}
-        self._indptrs = {k: v for k, v in self._indptrs.items() if k in keep_ids}
 
     def carry_from(self, old: "LPEngine") -> None:
         """Adopt a predecessor engine's stats object, watchdog key sets and
@@ -423,13 +415,17 @@ class LPEngine:
 
     # ------------------------------------------------------------------ sweeps
 
+    def _count_sweep(self, bucket: tuple, *statics) -> None:
+        """Count one sweep and note its (bucket, statics) key."""
+        self.stats.sweep_calls += 1
+        self.stats.buckets.add(bucket)
+        note_new(self._sweep_keys, "engine.sweep", bucket + statics)
+
     def _sweep(self, dp, labels, weights, nw_arena, restrict, U, seed, num_labels,
                *, iters, refine_mode, use_restrict, permute_chunks):
-        self.stats.sweep_calls += 1
-        bucket = dp.shape + (labels.shape[0], weights.shape[0])
-        self.stats.buckets.add(bucket)
-        note_new(self._sweep_keys, "engine.sweep", bucket + (
-            restrict.shape[0], iters, refine_mode, use_restrict, permute_chunks))
+        self._count_sweep(dp.shape + (labels.shape[0], weights.shape[0]),
+                          restrict.shape[0], iters, refine_mode, use_restrict,
+                          permute_chunks)
         return lp_sweep(
             dp.nodes, dp.node_valid, dp.edge_dst, dp.edge_w, dp.edge_src_slot,
             dp.edge_valid,
@@ -450,6 +446,7 @@ class LPEngine:
         """SCLaP clustering for coarsening; returns DEVICE labels (length n).
         Degree traversal order; a tensor ``restrict`` must already be
         arena-sized (``project_restrict`` output)."""
+        g = self._dev(g)
         dp = self._pack(g, "degree")
         ar = self._arena(g)
         if restrict is None:
@@ -485,6 +482,7 @@ class LPEngine:
         seed: int,
     ) -> torch.Tensor:
         """Chunked-sequential SCLaP local search; arena labels in/out."""
+        g = self._dev(g)
         dp = self._pack(g, "random")
         ar = self._arena(g)
         lab = self.to_arena(labels, g.n, fill=k)
@@ -520,6 +518,7 @@ class LPEngine:
     ) -> torch.Tensor:
         """Synchronous dense refinement: ``iters`` kernel-scored rounds on a
         cached (bucket-padded) ELL pack, labels device-resident throughout."""
+        g = self._dev(g)
         de = self._ell(g)
         ar = self._arena(g)
         # bucketed node axis: arena labels/weights sliced to the pow2 node
@@ -545,23 +544,16 @@ class LPEngine:
     def _weights_exact(self) -> bool:
         """Integral node/edge weights with f32-exact sums (scanned once from
         the finest graph; contraction only sums, so coarse levels inherit
-        it) — the precondition for order-independent float scatter sums."""
+        it) — the precondition for order-independent float scatter sums.
+        The sums are float64, so the decision takes no reduction order."""
         if self._exact_weights is None:
-            g = self._g0
-            if isinstance(g, GraphDev):
-                self._exact_weights = bool(
-                    (g.m == 0 or g.ew_integral)
-                    and bool(torch.all(g.nw == torch.round(g.nw)))
-                    and float(g.ew.sum()) < 2**24
-                    and float(g.nw.sum()) < 2**24
-                )
-            else:
-                self._exact_weights = bool(
-                    (g.m == 0 or np.all(g.ew == np.round(g.ew)))
-                    and np.all(g.nw == np.round(g.nw))
-                    and float(g.ew.sum()) < 2**24
-                    and float(g.nw.sum()) < 2**24
-                )
+            g = self._dev(self._g0)
+            self._exact_weights = bool(
+                (g.m == 0 or g.ew_integral)
+                and bool(torch.all(g.nw == torch.round(g.nw)))
+                and float(g.ew.sum(dtype=torch.float64)) < 2**24
+                and float(g.nw.sum(dtype=torch.float64)) < 2**24
+            )
         return self._exact_weights
 
     # ---------------------------------------------------------------- finish
@@ -578,30 +570,61 @@ class LPEngine:
         resident arena: :func:`~repro_torch.core.initial_partition.
         repair_balance`'s labels (under :meth:`can_finish_device`), as new
         arena labels, and the number of nodes moved as a device scalar."""
+        g = self._dev(g)
         ar = self._arena(g)
         lab = self.to_arena(labels, g.n, fill=k)
         self.stats.finish_device += 1
-        return repair_balance_device(lab, ar.src, ar.dst, ar.ew, ar.nw_arena,
+        return repair_balance_device(lab, g.src, g.indices, g.ew, ar.nw_arena,
                                      g.n, k, L)
 
     # ---------------------------------------------------------------- repair
 
-    def _indptr_dev(self, g: AnyGraph) -> torch.Tensor:
-        """Device CSR row pointers for region gathers: a GraphDev carries
-        its own, a GraphNP uploads its (n + 1) pointers once."""
-        if isinstance(g, GraphDev):
-            return g.indptr
-        hit = self._indptrs.get(id(g))
-        if hit is not None and hit[0] is g:
-            return hit[1]
-        t = _upload(g.indptr, self.device, torch.int64)
-        self.stats.h2d_bytes += (g.n + 1) * 4
-        _mem_account("base_csr", t)
-        self._indptrs[id(g)] = (g, t)
-        return t
+    def _note_repair(self, stage: str, T: int, *dims) -> None:
+        """:func:`~repro_torch.dynamic.repair.repair_lanes`' note hook: each
+        program's shape (a group's flat dims) under the reference's
+        ``engine.repair`` keys; the region sweep also counts as a sweep."""
+        if stage == "score":        # the solo guard is no program of its own
+            return
+        if stage == "gather":
+            dims = (dims[:2],) + dims[2:]
+        elif stage == "sweep":
+            dims = (dims[:3],) + dims[3:]
+        note_new(self.stats.repair_buckets, "engine.repair",
+                 ("frontier" if stage == "expand" else stage,) + dims)
+        if stage == "sweep":
+            self._count_sweep(dims[0] + dims[1:3], 1, dims[3], True, False, True)
 
-    def _note_repair_key(self, key) -> None:
-        note_new(self.stats.repair_buckets, "engine.repair", key)
+    def repair_lane(self, g: AnyGraph, labels: Union[np.ndarray, torch.Tensor],
+                    touched: np.ndarray, k: int, U: float, seed: int,
+                    hop_degree_cap: Optional[int],
+                    adjacency: Optional[Tuple[torch.Tensor, ...]]):
+        """Stage one region repair of ``g`` as a
+        :class:`~repro_torch.dynamic.repair.RepairLane`: its arena labels
+        and node weights, its resident arcs (or ``adjacency``'s), the
+        touched ids in ``[0, n)`` and the hop degree cap (``None`` or <= 0
+        disables it).  See :meth:`repair` for the arguments."""
+        from ..dynamic.repair import RepairLane   # dynamic builds on core
+
+        g = self._dev(g)
+        ar = self._arena(g)
+        n, m = g.n, g.m
+        if adjacency is not None:
+            ip, src, dst, ew = adjacency[:4]
+        elif self._host_form(g):
+            # the reference repairs a host graph on its exact (n + 1, m)
+            # arrays, and its shape keys name them: views, inert to cut
+            ip, src, dst, ew = g.indptr[: n + 1], g.src[:m], g.indices[:m], g.ew[:m]
+        else:
+            ip, src, dst, ew = g.indptr, g.src, g.indices, g.ew
+        t_ids = np.unique(np.asarray(touched, dtype=np.int64))
+        return RepairLane(
+            labels=self.to_arena(labels, n, fill=k), nw=ar.nw_arena,
+            indptr=ip, src=src, dst=dst, ew=ew, n=n, U=U, seed=seed,
+            cap=(0x7FFFFFFF if hop_degree_cap is None or hop_degree_cap <= 0
+                 else int(hop_degree_cap)),
+            touched=t_ids[(t_ids >= 0) & (t_ids < n)],
+            pack=(self.N, self._e_request, self.pack_block),
+        )
 
     def repair(
         self,
@@ -619,16 +642,10 @@ class LPEngine:
         hop_degree_cap: Optional[int] = None,
         adjacency: Optional[Tuple[torch.Tensor, ...]] = None,
     ) -> Tuple[torch.Tensor, int, float, np.ndarray]:
-        """Incremental size-constrained repair after a graph mutation.
-
-        Expands the ``hops``-hop affected region around the ``touched`` node
-        ids on the device, packs only the region's nodes into sweep chunks
-        (host plan O(region), device gather O(region arcs) from the resident
-        CSR), runs the chunked sweep in refine mode against the exact global
-        block weights and ``U = L_max``, then region-masked gain and
-        balance-repair rounds.  A guard keeps the repaired labels only if
-        the cut did not worsen and the balance bound did not degrade, or if
-        they restored a violated bound.
+        """Incremental size-constrained repair after a graph mutation: the
+        one-lane case of :func:`~repro_torch.dynamic.repair.repair_lanes`
+        (region expansion, region pack, sweep, gain and balance rounds, the
+        cut/feasibility guard) on ``g``'s resident arrays.
 
         ``hop_degree_cap``: hops past the first only expand through nodes of
         degree <= cap (``None`` or <= 0 disables it).  ``adjacency``
@@ -641,152 +658,29 @@ class LPEngine:
 
         Returns ``(arena labels, region size, cut, block weights)`` for the
         labels it returns; labels outside the region are those of the
-        input, and a rejected repair returns the input tensor itself.
+        input, and a rejected repair returns the input tensor itself.  The
+        region always holds the touched ids, so only an update that touches
+        no node skips the repair.
         """
-        from ..dynamic.repair import (
-            TAG_DYN_GAIN,
-            TAG_DYN_GAIN_GATE,
-            balance_rounds_device,
-            expand_region_device,
-            gain_round_device,
-        )
+        from ..dynamic.repair import repair_lanes   # dynamic builds on core
 
         self.stats.repair_calls += 1
-        n = g.n
-        dev = self.device
-        ar = self._arena(g)
-        if adjacency is not None:
-            ip, a_src, a_dst, a_ew = adjacency[:4]
-        else:
-            ip = self._indptr_dev(g)
-            a_src, a_dst, a_ew = ar.src, ar.dst, ar.ew
-
-        def cut_now(lab_: torch.Tensor) -> float:
-            return float(cut_from_arcs(lab_, a_src, a_dst, a_ew))
-
-        lab = self.to_arena(labels, n, fill=k)
-        t_ids = np.unique(np.asarray(touched, dtype=np.int64))
-        t_ids = t_ids[(t_ids >= 0) & (t_ids < n)]
-        if t_ids.size == 0:
-            return lab, 0, cut_now(lab), self.block_weights(g, lab, k)
-        # ---- h-hop affected region (device frontier expansion) ----
-        Tb = pow2(max(t_ids.size, 8))
-        tpad = np.full(Tb, n, np.int64)
-        tpad[: t_ids.size] = t_ids
-        self.stats.h2d_bytes += Tb * 4
-        # None and <= 0 both disable the cap
-        cap = (0x7FFFFFFF if hop_degree_cap is None or hop_degree_cap <= 0
-               else int(hop_degree_cap))
-        self._note_repair_key(
-            ("frontier", Tb, a_src.shape[0], ip.shape[0], self.A))
-        with _obs_span("repair.expand", cat="repair",
-                       touched=int(t_ids.size), hops=int(hops)):
-            mask = expand_region_device(
-                _upload(tpad, dev), a_src, a_dst, ip, n, hops, cap, A=self.A
-            )
-            mask_np = mask[:n].cpu().numpy()
-        self.stats.d2h_bytes += mask_np.nbytes
-        region = np.flatnonzero(mask_np)
-        if region.size == 0:
-            return lab, 0, cut_now(lab), self.block_weights(g, lab, k)
-        # ---- region pack: host O(region) plan, device O(region m) gather
-        with _obs_span("pack.plan", cat="pack", n=int(region.size)):
-            order = np.random.default_rng(seed).permutation(region).astype(np.int64)
-            if adjacency is not None or isinstance(g, GraphDev):
-                # region degrees gathered on the device: a fresh store
-                # handle's host degree cache is cold, and O(region) is all
-                # the plan needs
-                oi = _upload(order, dev)
-                self.stats.h2d_bytes += order.size * 4
-                deg_r = (ip[oi + 1] - ip[oi]).cpu().numpy().astype(np.int64)
-                self.stats.d2h_bytes += deg_r.nbytes // 2
-            else:
-                deg_r = g.degrees()[order]
-            nodes, node_valid, C, N, E = plan_region_pack(
-                deg_r, order, n, max_nodes=self.N,
-                max_edges=self._e_request, block=self.pack_block,
-            )
-            Cb = pow2(C)
-            Eb = max(self._repair_E, -(-E // 512) * 512)  # sticky, like E_floor
-            self._repair_E = Eb
-            nodes = np.pad(nodes, ((0, Cb - C), (0, self.N - N)), constant_values=n)
-            node_valid = np.pad(node_valid, ((0, Cb - C), (0, self.N - N)))
-        with _obs_span("pack.upload", cat="pack"):
-            nodes_d = _upload(nodes, dev, torch.int64)
-            nv_d = _upload(node_valid, dev)
-        self.stats.h2d_bytes += nodes.size * 4 + node_valid.nbytes
-        self._note_repair_key(
-            ("gather", nodes.shape, ip.shape[0], a_dst.shape[0], Eb))
-        with _obs_span("repair.gather", cat="repair",
-                       region=int(region.size)) as sp:
-            edge_dst, edge_w, edge_slot, edge_valid = gather_pack_device(
-                nodes_d, nv_d, ip, a_dst, a_ew, n, E=Eb
-            )
-            sp.sync_on(edge_valid)
-        dp = _DevicePack(
-            graph=g, nodes=nodes_d, node_valid=nv_d, edge_dst=edge_dst,
-            edge_w=edge_w, edge_src_slot=edge_slot, edge_valid=edge_valid,
-            num_chunks=C, shape=(Cb, self.N, Eb),
-        )
-        _mem_account("chunk_packs", nodes_d, nv_d, edge_dst, edge_w,
-                     edge_slot, edge_valid, mask)
-        # ---- LP sweeps against exact global block weights ----
-        bw = torch.zeros(k + 1, dtype=torch.float32, device=dev).index_add_(
-            0, torch.clamp(lab, max=k).to(torch.int64), ar.nw_arena
-        )
-        bw_old_max = float(bw[:k].max())
-        before_cut = cut_now(lab)
-        w0 = bw.clone()
-        w0[k] = float("inf")
-        self._note_repair_key(("sweep", dp.shape, self.A, k + 1, iters))
-        with _obs_span("repair.sweep", cat="repair", iters=int(iters)) as sp:
-            out, _, _ = self._sweep(
-                dp, lab, w0, ar.nw_arena,
-                torch.zeros(1, dtype=torch.int32, device=dev), U, seed, k,
-                iters=iters, refine_mode=True, use_restrict=False,
-                permute_chunks=True,
-            )
-            sp.sync_on(out)
-        # ---- region-masked gain + balance rounds ----
-        Kb = k + 1
-        with _obs_span("repair.gain", cat="repair", rounds=int(gain_rounds)) as sp:
-            for r in range(gain_rounds):
-                self._note_repair_key(("gain", self.A, a_src.shape[0], Kb))
-                out = gain_round_device(
-                    a_src, a_dst, a_ew, ar.nw_arena, out, mask, n, k, U,
-                    hash_base_u32(seed, r, TAG_DYN_GAIN),
-                    hash_base_u32(seed, r, TAG_DYN_GAIN_GATE), Kb=Kb,
-                )
-            sp.sync_on(out)
-        if balance_rounds:
-            self._note_repair_key(("balance", self.A, Kb, balance_rounds))
-            with _obs_span("repair.balance", cat="repair",
-                           rounds=int(balance_rounds)) as sp:
-                out = balance_rounds_device(
-                    ar.nw_arena, out, mask, n, k, U, seed & 0x7FFFFFFF,
-                    Kb=Kb, rounds=balance_rounds,
-                )
-                sp.sync_on(out)
-        # ---- guard: keep the repaired labels only if the cut did not worsen
-        # AND the balance bound did not degrade, or if they restored a
-        # violated bound — repair never trades feasibility for cut
-        bw_new = torch.zeros(k + 1, dtype=torch.float32, device=dev).index_add_(
-            0, torch.clamp(out, max=k).to(torch.int64), ar.nw_arena
-        )
-        bw_new_max = float(bw_new[:k].max())
-        after_cut = cut_now(out)
-        self.stats.d2h_bytes += 16  # the guard's two cut + two bw scalars
-        ok_cut = (
-            after_cut <= before_cut
-            and bw_new_max <= max(bw_old_max, U + 1e-6)
-        )
-        if ok_cut or bw_old_max > U >= bw_new_max:
-            return out, int(region.size), after_cut, bw_new[:k].cpu().numpy()
-        return lab, int(region.size), before_cut, bw[:k].cpu().numpy()
+        lane = self.repair_lane(g, labels, touched, k, U, seed, hop_degree_cap,
+                                adjacency)
+        if lane.touched.size == 0:
+            cut = float(cut_from_arcs(lane.labels, lane.src, lane.dst, lane.ew))
+            return lane.labels, 0, cut, self.block_weights(g, lane.labels, k)
+        rep = repair_lanes([lane], k, hops=hops, iters=iters,
+                           gain_rounds=gain_rounds, balance_rounds=balance_rounds,
+                           E=self._repair_E, note=self._note_repair)
+        self._repair_E = rep.E                    # sticky, like E_floor
+        self.stats.h2d_bytes += rep.h2d
+        self.stats.d2h_bytes += rep.d2h
+        return rep.labels[0], rep.sizes[0], rep.cuts[0], rep.bws[0]
 
     # ---------------------------------------------------------- evolutionary
 
-    def _deg_f(self, g: AnyGraph, Ab: int) -> torch.Tensor:
+    def _deg_f(self, g: GraphDev, Ab: int) -> torch.Tensor:
         """(Ab,) float32 degrees (0 beyond n), uploaded once per graph."""
         hit = self._degs.get(id(g))
         if hit is not None and hit[0] is g and hit[1].shape[0] == Ab:
@@ -813,6 +707,7 @@ class LPEngine:
     def _evo_arrays(self, g: AnyGraph):
         """(pack, arena, Ab) of one evolution run: the cached "random" pack
         (shared with refine sweeps), so the graph uploads once per run."""
+        g = self._dev(g)
         return self._pack(g, "random"), self._arena(g), pow2(g.n + 1)
 
     def evolve_device(self, g: AnyGraph, cfg, shard: bool = False,
@@ -827,6 +722,7 @@ class LPEngine:
         one entry and ``islands % D == 0`` (the reference's rule); else the
         one shard is the whole batch on the engine's device.  The result
         is the same either way."""
+        g = self._dev(g)
         n, k = g.n, cfg.k
         I, P, G = cfg.islands, cfg.pop_per_island, cfg.generations
         Kb, Sb = pow2(k + 1), pow2(I * P)
@@ -834,7 +730,7 @@ class LPEngine:
         EG = EvoGraph(
             pack=(dp.nodes, dp.node_valid, dp.edge_dst, dp.edge_w,
                   dp.edge_src_slot, dp.edge_valid),
-            num_chunks=dp.num_chunks, src=ar.src, dst=ar.dst, ew=ar.ew,
+            num_chunks=dp.num_chunks, src=g.src, dst=g.indices, ew=g.ew,
             nw=ar.nw_arena[:Ab], deg_f=self._deg_f(g, Ab), n=n, k=k, Kb=Kb,
             Lmax=float(np.float32(cfg.Lmax)), seed=int(cfg.seed) & 0x7FFFFFFF,
             refine_iters=cfg.refine_iters,
@@ -914,6 +810,7 @@ class LPEngine:
     def evolve_oracle(self, g: AnyGraph, cfg, trace=None) -> np.ndarray:
         """The sequential numpy oracle on the same pack and arc tensors the
         batched GA reads (the parity reference)."""
+        g = self._dev(g)
         dp, ar, Ab = self._evo_arrays(g)
         deg = np.zeros(Ab, np.int32)
         deg[: g.n] = g.degrees()
@@ -926,33 +823,12 @@ class LPEngine:
             edge_dst=host(dp.edge_dst), edge_w=host(dp.edge_w),
             edge_src_slot=host(dp.edge_src_slot), edge_valid=host(dp.edge_valid),
             num_chunks=dp.num_chunks,
-            src=host(ar.src), dst=host(ar.dst), ew=host(ar.ew),
+            src=host(g.src), dst=host(g.indices), ew=host(g.ew),
             nw=host(ar.nw_arena[:Ab]), deg=deg, n=g.n,
         )
         return evolve_batched_numpy(inp, cfg, trace=trace)
 
     # ------------------------------------------------------------ contraction
-
-    def _contract_inputs(self, g: AnyGraph, Nb: int, Mb: int):
-        """(src, dst, ew, nw, ew_integral, ew_max) for the (Nb, Mb) bucket.
-        GraphDev handles are born in their bucket and pass through; a
-        GraphNP pads from the cached arena tensors once per graph."""
-        if isinstance(g, GraphDev):
-            return g.src, g.indices, g.ew, g.nw, g.ew_integral, g.ew_max
-        hit = self._cin.get(id(g))
-        if hit is not None and hit[0] is g:
-            return hit[1:]
-        ar = self._arena(g)
-        pm = Mb - g.m
-        src = torch.cat([ar.src, ar.src.new_zeros(pm)])
-        dst = torch.cat([ar.dst, ar.dst.new_zeros(pm)])
-        ew = torch.cat([ar.ew, ar.ew.new_zeros(pm)])
-        nw = ar.nw_arena[:Nb]
-        integral = bool(np.all(g.ew == np.round(g.ew))) if g.m else True
-        ew_max = float(g.ew.max()) if g.m else 0.0
-        _mem_account("base_csr", src, dst, ew)
-        self._cin[id(g)] = (g, src, dst, ew, nw, integral, ew_max)
-        return src, dst, ew, nw, integral, ew_max
 
     def contract(
         self, g: AnyGraph, labels: Union[np.ndarray, torch.Tensor]
@@ -960,12 +836,14 @@ class LPEngine:
         """Device-resident contraction of cluster ids in ``[0, n)``.  Returns
         the coarse :class:`GraphDev` (in its own buckets) and the
         fine->coarse :class:`CoarseMap`; only ``(n_c, m_c, max nw_c, max
-        ew_c)`` are synced to the host."""
+        ew_c)`` are synced to the host.  The graph's device form is born in
+        its ``(Nb, Mb)`` bucket, so its arrays are the program's inputs."""
+        g = self._dev(g)
         n, m = g.n, g.m
         Nb = pow2(max(n, 8))
         Mb = arc_bucket(m)
-        src, dst, ew, nw, integral, ew_max = self._contract_inputs(g, Nb, Mb)
-        wbits = packed_key_wbits(Nb, Mb, ew_max, integral)
+        integral = g.ew_integral
+        wbits = packed_key_wbits(Nb, Mb, g.ew_max, integral)
         if isinstance(labels, torch.Tensor):
             lab = labels.to(torch.int64)
         else:
@@ -977,7 +855,8 @@ class LPEngine:
         note_new(self.stats.contract_buckets, "engine.contract", (Nb, Mb, wbits))
         with _obs_span("vcycle.contract", cat="vcycle", n=int(n), m=int(m)):
             (C, n_c, nw_c, indptr_c, src_c, dst_c, ew_c, m_c, nwmax,
-             ewmax) = contract_device(src, dst, ew, nw, lab, n, m, wbits=wbits)
+             ewmax) = contract_device(g.src, g.indices, g.ew, g.nw, lab, n, m,
+                                      wbits=wbits)
             # the only host sync of the level: all four scalars at once
             scal = torch.stack(
                 [n_c.double(), m_c.double(), nwmax.double(), ewmax.double()]
@@ -1059,8 +938,8 @@ class LPEngine:
 
     def cut(self, g: AnyGraph, labels: torch.Tensor) -> float:
         """Edge cut of arena labels, evaluated on the device (one sync)."""
-        ar = self._arena(g)
-        return float(cut_from_arcs(labels, ar.src, ar.dst, ar.ew))
+        g = self._dev(g)
+        return float(cut_from_arcs(labels, g.src, g.indices, g.ew))
 
     def block_weights(self, g: AnyGraph, labels: torch.Tensor, k: int) -> np.ndarray:
         ar = self._arena(g)

@@ -322,11 +322,19 @@ class PartitionSession:
         _mem_account("label_arenas", self.labels)
         self.engine.stats.h2d_bytes += ids.size * 12
 
-    def _maybe_rebuild_engine(self) -> None:
-        """Node growth past the label arena forces a fresh engine (the arena
-        has pow2 headroom above the initial n).  Called after the
-        post-update compaction; labels carry over, fresh slots arrive
-        unassigned (label k) for ``_assign_new_nodes`` to place."""
+    def _step_seed(self) -> int:
+        """The repair (and escalation) seed of the current step."""
+        return (self.cfg.seed * 0x9E3779B1 + self._step) & 0x7FFFFFFF
+
+    def _rebase(self, g) -> None:
+        """Follow the store's graph ``g`` after an update's compaction:
+        drop device caches keyed on an older base handle, and rebuild the
+        engine when nodes outgrew its label arena (pow2 headroom above the
+        initial n).  Labels carry over; fresh slots arrive unassigned
+        (label k) for ``_assign_new_nodes`` to place."""
+        if id(g) != self._base_id:
+            self.engine.evict(keep=(g,))
+            self._base_id = id(g)
         if self.store.n < self.engine.A:
             return
         gh = self.store.csr_host()
@@ -418,7 +426,6 @@ class PartitionSession:
         upd.validate(self.store.n)
         lap("validate")
         self._step += 1
-        step = self._step
         st = self.engine.stats
         h2d0, d2h0 = st.h2d_bytes, st.d2h_bytes
         prospective_n = self.store.n + upd.num_new_nodes
@@ -428,7 +435,7 @@ class PartitionSession:
             # label tensor is left untouched
             last = self.trajectory[-1]
             res = UpdateResult(
-                step=step, n=self.store.n, m=self.store.m, cut=last.cut,
+                step=self._step, n=self.store.n, m=self.store.m, cut=last.cut,
                 imbalance=last.imbalance, feasible=last.feasible, noop=True,
                 seconds=time.time() - t0,
                 t_mono=time.monotonic(), span_ms=sp_ms,
@@ -463,18 +470,14 @@ class PartitionSession:
             g = self.store.graph()      # compacts the overlay
             adjacency = None
         lap("compact")
-        self._maybe_rebuild_engine()
-        if id(g) != self._base_id:
-            # fresh base handle: drop device caches keyed on the old one
-            self.engine.evict(keep=(g,))
-            self._base_id = id(g)
+        self._rebase(g)
         self._assign_new_nodes(g, first_new)
         lap("rebuild")
         touched = np.concatenate([
             net_u, net_v,
             np.arange(first_new, self.store.n, dtype=np.int64),
         ])
-        seed = (self.cfg.seed * 0x9E3779B1 + step) & 0x7FFFFFFF
+        seed = self._step_seed()
         self.labels, rsize, cut, bw = self.engine.repair(
             g, self.labels, touched, self.k, self._lmax(),
             hops=self.cfg.hops, iters=self.cfg.repair_iters,
@@ -484,11 +487,6 @@ class PartitionSession:
             adjacency=None if adjacency is None else adjacency[:4],
         )
         lap("repair")
-        # the repair guard already evaluated the returned labels — score
-        # the step from its cut/block-weight results
-        W = max(self.store.total_node_weight, 1e-9)
-        imb = float(bw.max() * self.k / W - 1.0)
-        feas = bool(bw.max() <= self._lmax() + 1e-6)
         if adjacency is None:
             m_now = self.store.m
             ew_now = max(float(g.ew.sum()) / 2.0, 1e-9)
@@ -498,6 +496,38 @@ class PartitionSession:
             m_now = int(adjacency[4])
             ew_now = max(float(adjacency[3].sum()) / 2.0, 1e-9)
         st.d2h_bytes += 8
+        res = self._settle(cut, bw, ew_now, seed, m_now, lap,
+                           region_size=int(rsize), used_view=use_view,
+                           compact_deferred=deferred, span_ms=sp_ms)
+        if use_view:
+            self.view_hits += 1
+        res.seconds = time.time() - t0
+        res.h2d_bytes = st.h2d_bytes - h2d0
+        res.d2h_bytes = st.d2h_bytes - d2h0
+        return res
+
+    def stage_lane(self, upd: GraphUpdate, touched: np.ndarray):
+        """A ``SessionGroup`` lane's half of :meth:`update` (no node churn,
+        always compacted): absorb the validated ``upd`` and stage this
+        step's repair around ``touched``; :meth:`_settle` takes its result."""
+        self._step += 1
+        self.store.apply(upd)
+        g = self.store.graph()
+        self._rebase(g)
+        return self.engine.repair_lane(g, self.labels, touched, self.k,
+                                       self._lmax(), self._step_seed(),
+                                       self._hop_cap(), None)
+
+    def _settle(self, cut: float, bw: np.ndarray, ew_now: float, seed: int,
+                m: int, lap, **fields) -> UpdateResult:
+        """The quality guard's verdict on a repaired step (solo or group
+        lane): score its ``cut`` and block weights ``bw`` (in ``bw``'s
+        dtype), escalate (or flag stale) when it is infeasible or the cut
+        drifted past the last full partition's, scaled by ``ew_now``, and
+        append the trajectory point; ``lap`` clocks the phases."""
+        W = max(self.store.total_node_weight, 1e-9)
+        imb = float(bw.max() * self.k / W - 1.0)
+        feas = bool(bw.max() <= self._lmax() + 1e-6)
         scaled_ref = self._cut_ref * (ew_now / self._ew_ref)
         wanted = (not feas) or (
             cut > self.cfg.escalate_cut_ratio * max(scaled_ref, 1.0)
@@ -511,18 +541,13 @@ class PartitionSession:
             self._escalate(seed)
             # escalation compacted the store — rescore on the fresh base
             cut, imb, feas = self._score(self.store.base)
-            m_now = self.store.m
+            m = self.store.m
             lap("escalate")
         self.updates_applied += 1
-        if use_view:
-            self.view_hits += 1
         res = UpdateResult(
-            step=step, n=self.store.n, m=m_now, cut=cut,
-            imbalance=imb, feasible=feas, region_size=int(rsize),
-            escalated=escalated, stale=stale, used_view=use_view,
-            compact_deferred=deferred, seconds=time.time() - t0,
-            h2d_bytes=st.h2d_bytes - h2d0, d2h_bytes=st.d2h_bytes - d2h0,
-            t_mono=time.monotonic(), span_ms=sp_ms,
+            step=self._step, n=self.store.n, m=m, cut=cut, imbalance=imb,
+            feasible=feas, escalated=escalated, stale=stale,
+            t_mono=time.monotonic(), **fields,
         )
         self.trajectory.append(res)
         return res
@@ -556,12 +581,11 @@ class PartitionSession:
         st.d2h_bytes += lab_old.nbytes
         lab_new = lab_old[keep]
         g = self.store.base
-        self.engine.evict(keep=(g,))
-        self._base_id = id(g)
+        self._rebase(g)
         self.labels = self.engine.to_arena(lab_new, self.store.n, fill=self.k)
         st.h2d_bytes += lab_new.size * 4
         cut, imb, feas = self._score(g)
-        seed = (self.cfg.seed * 0x9E3779B1 + step) & 0x7FFFFFFF
+        seed = self._step_seed()
         escalated = stale = False
         if not feas:
             if self.suppress_escalation:

@@ -543,7 +543,6 @@ class DynamicGraphStore:
             self.base.indptr, self.base.indices, self.base.ew, self.base.nw,
             self.base.src)))
         self._nw_dev: Optional[torch.Tensor] = self.base.nw  # survives compacts
-        self._base_host: Optional[GraphNP] = g
         self._ou: List[np.ndarray] = []
         self._ov: List[np.ndarray] = []
         self._ow: List[np.ndarray] = []
@@ -718,7 +717,6 @@ class DynamicGraphStore:
             nw_max=float(nwmax), ew_max=float(ewmax), ew_integral=True,
             on_materialize=self._on_d2h,
         )
-        self._base_host = None
         self._ou = self._ou[p["nchunks"]:]
         self._ov = self._ov[p["nchunks"]:]
         self._ow = self._ow[p["nchunks"]:]
@@ -807,11 +805,9 @@ class DynamicGraphStore:
         return self.base
 
     def csr_host(self) -> GraphNP:
-        """Host CSR of the CURRENT graph (compacts, then materializes)."""
-        g = self.graph()
-        if self._base_host is None:
-            self._base_host = g.to_host()
-        return self._base_host
+        """Host CSR of the CURRENT graph (compacts, then materializes; the
+        base handle caches it, and the first base is the host graph)."""
+        return self.graph().to_host()
 
     # ------------------------------------------------------------- tombstones
 
@@ -897,7 +893,6 @@ class DynamicGraphStore:
         )
         self.n = n_new
         self._tomb = None
-        self._base_host = None
         self.last_vacuum_map = mapping
         return mapping
 
@@ -917,7 +912,6 @@ class DynamicGraphStore:
             base=self.base,
             nw=self._nw,
             nw_dev=self._nw_dev,
-            base_host=self._base_host,
             ou=list(self._ou),
             ov=list(self._ov),
             ow=list(self._ow),
@@ -934,7 +928,6 @@ class DynamicGraphStore:
         self.base = st["base"]
         self._nw = st["nw"]
         self._nw_dev = st["nw_dev"]
-        self._base_host = st["base_host"]
         self._ou = list(st["ou"])
         self._ov = list(st["ov"])
         self._ow = list(st["ow"])

@@ -7,9 +7,11 @@ weights ``nw`` (the layout of ``repro.graph.csr``).
 * :class:`GraphNP` — host numpy arrays (generators, host planners, the
   numpy engines).  Same fields and dtypes as the reference's ``GraphNP``.
 * :class:`GraphDev` — a device-resident, bucket-padded CSR of torch
-  tensors: the output of the engine's device contraction.  Only ``(n, m)``
-  and a few weight scalars live on the host; ``to_host()`` materializes a
-  :class:`GraphNP` lazily.  Index tensors are int64 (torch's index type).
+  tensors: the output of the engine's device contraction, or an upload
+  (:func:`to_device_csr`).  Only ``(n, m)`` and a few weight scalars live
+  on the host; ``to_host()`` materializes a :class:`GraphNP` lazily, and
+  an upload keeps the graph it was given as that mirror.  Index tensors
+  are int64 (torch's index type).
 """
 
 from __future__ import annotations
@@ -95,7 +97,8 @@ class GraphDev:
       arcs ``>= m`` hold index 0 / weight 0;
     * ``nw`` has ``Nb`` entries, 0 beyond ``n``.
 
-    ``degrees()`` and ``to_host()`` download lazily and cache;
+    ``degrees()`` and ``to_host()`` download lazily and cache (an upload's
+    host graph is that cache from the start);
     ``on_materialize(nbytes)`` lets the owning engine count the traffic.
     """
 
@@ -251,7 +254,9 @@ def to_device_csr(
     on_materialize=None,
 ) -> GraphDev:
     """Upload a host CSR into a bucket-padded :class:`GraphDev` satisfying
-    the invariants ``contract_device`` outputs satisfy."""
+    the invariants ``contract_device`` outputs satisfy.  ``g`` stays the
+    handle's host mirror: its ``degrees()`` and ``to_host()`` download
+    nothing."""
     dev = resolve_device(device)
     n, m = g.n, g.m
     Nb = pow2(max(n, 8))
@@ -266,7 +271,7 @@ def to_device_csr(
     src[:m] = g.arc_sources()
     nw = np.zeros(Nb, dtype=np.float32)
     nw[:n] = g.nw
-    return GraphDev(
+    gd = GraphDev(
         indptr=torch.from_numpy(indptr).to(dev),
         indices=torch.from_numpy(indices).to(dev),
         ew=torch.from_numpy(ew).to(dev),
@@ -278,6 +283,9 @@ def to_device_csr(
         ew_integral=bool(np.all(g.ew == np.round(g.ew))) if m else True,
         on_materialize=on_materialize,
     )
+    gd._indptr_host = indptr[: n + 1]
+    gd._host = g
+    return gd
 
 
 def validate(g: GraphNP) -> None:

@@ -375,9 +375,9 @@ def estimate_footprint(
     width of the dense path, and the dtypes the port allocates (int64
     indices, f32 weights, bool masks).  On the structure of the pipeline:
 
-    * ``workload="partition"`` models ``partition()``: the engine's arc
-      tensors and the padded contraction inputs of the finest level (two
-      ``20 m``-byte triples), the first coarse level, the finest level's
+    * ``workload="partition"`` models ``partition()``: the finest level's
+      one device CSR (``to_device_csr``: bucket-padded arcs, row pointers
+      and node weights), the first coarse level, the finest level's
       degree pack and (``refine_engine="dense"``) its ELL pack, cached for
       the whole run, plus the largest transient pack beside them: the GA's
       pack of the coarsest level of V-cycle 1 (padded to the finest
@@ -432,15 +432,17 @@ def estimate_footprint(
         nc = max(int(coarsest), k)
         if n < numpy_below:
             # every level runs on the host: the engine holds the GA's
-            # coarsest level only (its arena weights, arcs and pack)
-            fam["base_csr"] = 20 * ml
+            # coarsest level (its device CSR, arena weights and pack) and
+            # the finest level's device CSR, which its weight scan reads
+            fam["base_csr"] = _csr_bytes(nl, ml) + _csr_bytes(n, m)
             fam["chunk_packs"] = _pack_bytes(
                 _pow2(max(-(-nl // N), int(1.05 * ml / E_req) + 1)), N, E)
             fam["label_arenas"] = 8 * A
         else:
-            # --- base_csr: arc tensors + contraction inputs of the finest
-            # level, its CoarseMap, and the first coarse level
-            fam["base_csr"] = 20 * m + 20 * Mb
+            # --- base_csr: the finest level's device CSR (the arcs its pack
+            # gathers, contraction and finish read), its CoarseMap, and the
+            # first coarse level
+            fam["base_csr"] = _csr_bytes(n, m)
             if levels:
                 fam["base_csr"] += 8 * Nb + _csr_bytes(int(n * _SHRINK_N),
                                                        int(m * _SHRINK_M))
@@ -572,18 +574,15 @@ KNOWN_ALLOC_SITES: Dict[str, str] = {
     "core/engine.py::_upload": "exempt:the host-to-device helper; each "
     "caller is a site of its own",
     "core/engine.py::_arena": "label_arenas",
-    "core/engine.py::_contract_inputs": "base_csr",
     "core/engine.py::_deg_f": "evo_population",
     "core/engine.py::_ell": "chunk_packs",
     "core/engine.py::_generations": "evo_population",
-    "core/engine.py::_indptr_dev": "base_csr",
     "core/engine.py::_iota": "label_arenas",
     "core/engine.py::_pack_gather": "chunk_packs",
     "core/engine.py::contract": "base_csr",
     "core/engine.py::evolve_device": "evo_population",
     "core/engine.py::project": "label_arenas",
     "core/engine.py::project_restrict": "label_arenas",
-    "core/engine.py::repair": "chunk_packs",
     "core/engine.py::to_arena": "label_arenas",
     "core/engine.py::block_weights": "exempt:O(k) reduction scratch",
     "core/engine.py::cluster": "exempt:O(1) restrict placeholder and the "

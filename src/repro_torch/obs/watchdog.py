@@ -96,7 +96,9 @@ KNOWN_JIT_SITES: Dict[str, str] = {
     "dynamic/store.py::merge_overlay_device": "store.compact",
     "dynamic/store.py::overlay_view_device": "store.view",
     "dynamic/store.py::vacuum_device": "store.vacuum",
-    "dynamic/group.py::_dispatch_bucket": "group.repair",
+    # a session's repair and a SessionGroup bucket's: its caller's note
+    # names the family (engine.repair, or group.repair for a group)
+    "dynamic/repair.py::repair_lanes": "engine.repair",
     "deploy/extract.py::_shard_masks": "deploy.extract",
     "deploy/extract.py::_shard_extract": "deploy.extract",
     "resilience/audit.py::_csr_audit": "engine.audit",

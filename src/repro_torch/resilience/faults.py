@@ -151,7 +151,6 @@ class FaultInjector:
         else:
             raise ValueError(f"unknown mode {mode!r}")
         store.base = new
-        store._base_host = None
         return self._record("corrupt_base_csr", f"arc {ai} mode={mode}")
 
     def corrupt_shard(self, deployment, block: Optional[int] = None) -> InjectedFault:

@@ -114,6 +114,55 @@ def test_engine_contract_matches_host_oracle(case):
     assert abs(cut_np(gh, lab_c) - cut_np(g, lab_f)) < 1e-3
 
 
+def test_engine_holds_a_host_graphs_arcs_once(monkeypatch):
+    """A GraphNP's arcs live on the device once: its chunk-pack and ELL
+    gathers and its contraction all read the one to_device_csr upload, and
+    base_csr accounts that upload, the coarse level and the contraction
+    map, nothing more."""
+    import repro_torch.core.engine as TE
+    from repro_torch.graph import to_device_csr
+    from repro_torch.obs import accountant, set_accounting
+
+    seen = []
+
+    def spy(fn, pos):
+        def wrapped(*args, **kw):
+            seen.append((fn.__name__, args[pos].data_ptr()))
+            return fn(*args, **kw)
+        return wrapped
+
+    monkeypatch.setattr(TE, "gather_pack_device", spy(TE.gather_pack_device, 3))
+    monkeypatch.setattr(TE, "gather_ell_device", spy(TE.gather_ell_device, 2))
+    monkeypatch.setattr(TE, "contract_device", spy(TE.contract_device, 1))
+    gr = R.rmat(10, 8, seed=5)
+    g = from_reference(gr.indptr, gr.indices, gr.ew, gr.nw)
+    k = 2
+    prev = set_accounting(True)
+    try:
+        accountant().reset()
+        eng = LPEngine(g, device="cpu")
+        clus = eng.cluster(g, U=float(g.nw.sum()) / 8, iters=2, seed=0)
+        coarse, cmap = eng.contract(g, clus)
+        eng.refine_dense(g, np.arange(g.n, dtype=np.int32) % k, k,
+                         U=float(g.nw.sum()), iters=1, seed=0)
+        base = accountant().snapshot()["by_family"]["base_csr"]
+    finally:
+        set_accounting(prev)
+        accountant().reset()
+    assert sorted(name for name, _ in seen) == [
+        "contract_device", "gather_ell_device", "gather_pack_device"]
+    dst = eng._dev(g).indices.data_ptr()
+    assert all(ptr == dst for _, ptr in seen), seen
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    up = to_device_csr(g, "cpu")
+    assert base == (nbytes(up.indptr, up.indices, up.ew, up.nw, up.src)
+                    + nbytes(coarse.indptr, coarse.indices, coarse.ew, coarse.nw,
+                             coarse.src, cmap.dev))
+
+
 def test_weights_exact_matches_reference():
     from repro.core.engine import LPEngine as RefEngine
 

@@ -529,7 +529,7 @@ def test_finest_pack_gathers_match_host_packers_within_budget():
     g = rmat(17, 16, seed=1)
     assert g.n >= 2**17
     eng = LPEngine(g, device="cuda")
-    eng._csr_dev(g)                  # the resident CSR, built before the peaks
+    eng._dev(g)                      # the resident CSR, built before the peaks
     torch.cuda.synchronize()
     buckets = [eng.C_bucket, eng.E_floor]
 
