@@ -19,7 +19,9 @@ Phases, each of which fails the run:
    in both V-cycles, then with the host GA.  Each run counts the kernels'
    launches from zero and must be feasible and beat a hash partition; the
    finish must run on the card (``repair_balance_walk`` launched once per
-   device finish whose labels have a block above L).
+   device finish whose labels have a block above L), and every chunk step
+   of the sweeps must be the ``lp_chunk_step`` kernel (three launches for
+   each ``lp.step`` span).
    Then the GA's generation step, which the fast preset skips: card == CPU
    on rmat(14, 16), and two generations on the full graph seeded with the
    run's partition, which must come out no worse than its seed;
@@ -28,7 +30,11 @@ Phases, each of which fails the run:
    each of phase 4's finishes, rebuilt by the prelude from the arguments it
    got, where the kernel must equal its plain version and the host's
    ``repair_balance`` label for label), and work out the walk's bound from
-   the latencies of its dependent chain, measured on the card;
+   the latencies of its dependent chain, measured on the card; the first
+   sweep of each kind phase 4 made (cluster, cluster under a restriction,
+   the GA's refine rows) through the chunk-step kernel and its plain
+   version on the CPU, bit for bit, and one step at the finest level's
+   largest chunk timed against its bytes bound and the plain version;
 6. the dynamic serving subsystem (``repro_torch.dynamic``): (a) a small
    mixed stream (edge churn, node adds, node removals) under the default
    and the throughput session config, and a three-tenant ``SessionGroup``,
@@ -550,6 +556,110 @@ def path_repair_balance_walk(torch, g, finishes) -> dict:
     return dict(rows=rows, latency=lat)
 
 
+def _step_bytes(pack, cc: int, moves: int) -> int:
+    """Bytes one chunk step needs, each read once and each result written
+    once: the chunk's valid arcs (head 8, weight 4, slot 8, valid 1) and
+    the label of each head (4), every node slot (id 8, valid 1), each valid
+    node's label and weight (4 + 4), and for each move its label (4) and
+    two block weights (8)."""
+    nodes, node_valid, _, _, _, edge_valid = pack
+    arcs = int(edge_valid[cc].sum())
+    valid = int(node_valid[cc].sum())
+    return arcs * 25 + nodes.shape[-1] * 9 + valid * 8 + moves * 12
+
+
+def path_lp_chunk_step(torch, sweeps) -> dict:
+    """lp_chunk_step on the main path's own inputs: the first sweep of each
+    kind phase 4 made (``sweeps``: (refine_mode, use_restrict, rows > 1) ->
+    its arguments), through the kernel and through its plain version on
+    the CPU; labels, block weights and moves must agree bit for bit.  Then
+    one step at the finest level's largest chunk (the first cluster
+    sweep's), timed with CUDA events: the kernel's three launches alone, and
+    a one-step sweep through the kernel and through the plain version on
+    the card, against the step's bytes at HBM bandwidth."""
+    import numpy as np
+    from repro_torch.core.label_propagation import _sweep_plan, lp_sweep_batched, lp_sweep_plain
+    from repro_torch.kernels.lp_step import ChunkStep, block_nodes
+
+    rows = []
+    for (refine, restrict, batched), (args, kw) in sorted(sweeps.items()):
+        v0 = block_nodes()
+        t = time.perf_counter()
+        got = lp_sweep_batched(*args, **kw)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        visits = block_nodes() - v0
+        t = time.perf_counter()
+        want = lp_sweep_plain(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args),
+                              **kw)
+        cpu_s = time.perf_counter() - t
+        for part, x, y in zip(("labels", "weights", "moves"), got, want):
+            if not torch.equal(x.cpu(), y):
+                _fail(f"lp_chunk_step differs from its plain version on phase 4's "
+                      f"{'refine' if refine else 'cluster'} sweep (restrict {restrict}, "
+                      f"rows {args[6].shape[0]}): {part}, "
+                      f"{int((x.cpu() != y).sum())} entries")
+        row = dict(refine=refine, restrict=restrict, rows=int(args[6].shape[0]),
+                   pack=list(args[0].shape), iters=kw["iters"],
+                   moves=int(want[2].sum()), block_visits=visits,
+                   card_s=round(card_s, 4), plain_cpu_s=round(cpu_s, 2))
+        print(f"lp_chunk_step main-path input: {json.dumps(row)}; card == plain", flush=True)
+        rows.append(row)
+    if (False, False, False) not in sweeps:
+        _fail("phase 4 made no cluster sweep: lp_chunk_step saw no finest-level input")
+    args, kw = sweeps[(False, False, False)]
+    # the whole first cluster sweep under the profiler: its steps launch the
+    # kernel's three kernels and nothing else (no sort, scan or scatter);
+    # the sweep's set-up (copies, fills, the chunks' count of valid arcs)
+    # launches a few ops once
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lp_sweep_batched(*args, **kw)
+        torch.cuda.synchronize()
+    ran = {e.key: e.count for e in prof.key_averages() if e.device_type.name == "CUDA"}
+    ours = sum(c for k, c in ran.items()
+               if any(f"{s}_kernel<" in k for s in ("segment", "propose", "apply")))
+    banned = {k: c for k, c in ran.items()
+              if any(w in k.lower() for w in ("sort", "scan", "scatter"))}
+    steps = kw["iters"] * int(args[13])
+    setup = sum(ran.values()) - ours
+    print(f"lp_chunk_step profiled sweep ({steps} steps): {ours} kernel launches, {setup} "
+          f"set-up ops; device ops {json.dumps(ran)}", flush=True)
+    if ours != 3 * steps or banned or setup > 16:
+        _fail(f"the profiled sweep launched {ours} lp_chunk_step kernels for {steps} steps, "
+              f"{setup} other ops, {banned}")
+    pack = args[:6]
+    cc = int(torch.argmax(pack[5].sum(dim=1)))
+    one = tuple(t[cc:cc + 1] for t in pack)
+    rest = (*args[6:13], 1)
+    dev = args[6].device
+    perm, bj, _ = _sweep_plan(args[11], 1, 1, 1, 1, False, False, dev)
+    U = torch.tensor([float(np.float32(args[10]))], device=dev)
+    step = ChunkStep(one, *args[6:10], U, torch.from_numpy(perm).to(dev), bj, bj,
+                     int(args[12]), refine_mode=False, use_restrict=False)
+    step(0, 0)
+    moves = int(step.result()[2].sum())
+    kernel_ms = _time_ms(lambda: step(0, 0), torch)
+    sweep_kw = dict(kw, iters=1)
+    sweep_ms = _time_ms(lambda: lp_sweep_batched(*one, *rest, **sweep_kw), torch,
+                        warmup=1, batches=3, reps=3)
+    plain_ms = _time_ms(lambda: lp_sweep_plain(*one, *rest, **sweep_kw), torch,
+                        warmup=1, batches=3, reps=3)
+    nbytes = _step_bytes(pack, cc, moves)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    timing = dict(chunk=cc, arcs=int(pack[5][cc].sum()), slots=int(pack[0].shape[-1]),
+                  nodes=int(pack[1][cc].sum()), first_step_moves=moves,
+                  ms=round(kernel_ms, 4), sweep_ms=round(sweep_ms, 4),
+                  plain_ms=round(plain_ms, 4), bytes=nbytes, bound_ms=round(bound_ms, 5),
+                  over_bound=round(kernel_ms / bound_ms, 2))
+    print(f"lp_chunk_step one step at the finest level's largest chunk: {json.dumps(timing)}",
+          flush=True)
+    torch.cuda.empty_cache()
+    return dict(rows=rows, timing=timing)
+
+
 def check_dense_round_batched(torch, g, k: int, B: int = 4) -> None:
     """Phase 2 for the batched dense round: ``B`` label rows on the finest
     level's ELL pack, scored with one kernel launch, must equal ``B``
@@ -745,10 +855,13 @@ def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
     after, and each device finish's arguments are kept (its labels cloned)
     for phase 5."""
     import repro_torch.core.engine as engine_mod
+    import repro_torch.core.evo_device as evo_mod
+    import repro_torch.core.label_propagation as lp_mod
     from repro_torch.core import PartitionerConfig, hash_partition, partition
     from repro_torch.core.metrics import cut_np
     from repro_torch.kernels.balance import repair_balance_walk
     from repro_torch.kernels.lp_score import lp_score_rows
+    from repro_torch.kernels.lp_step import ChunkStep, block_nodes
     from repro_torch.obs import Tracer, set_tracer
     cfg = PartitionerConfig(k=16, preset="fast", refine_engine="dense",
                             evo_engine=evo_engine, coarsest_factor=100, seed=0)
@@ -757,15 +870,28 @@ def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
     torch.cuda.synchronize()
     lp_score_rows.launches = 0
     repair_balance_walk.launches = 0
+    ChunkStep.launches = 0
+    block0 = block_nodes()
+    sweeps = {}   # (refine_mode, use_restrict, rows > 1) -> the first such sweep's (args, kw)
+
+    def keep_sweep(a, kw):
+        kind = (kw["refine_mode"], kw["use_restrict"], a[6].shape[0] > 1)
+        if kind not in sweeps:
+            sweeps[kind] = ((*a[:6], a[6].clone(), a[7].clone(), *a[8:]), kw)
+
     # (labels, src, dst, ew, nw, n, k, L) of each device finish
     with _Counted(torch, engine_mod, "repair_balance_device",
-                  keep=lambda a, kw: (a[0].clone(), *a[1:])) as fin:
+                  keep=lambda a, kw: (a[0].clone(), *a[1:])) as fin, \
+            _Counted(torch, lp_mod, "lp_sweep_batched", keep=keep_sweep), \
+            _Counted(torch, evo_mod, "lp_sweep_batched", keep=keep_sweep):
         t = time.perf_counter()
         rep = partition(g, cfg)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     launches = lp_score_rows.launches
     walk_launches = repair_balance_walk.launches
+    step_launches = ChunkStep.launches
+    block_visits = block_nodes() - block0
     set_tracer(None)
 
     k = cfg.k
@@ -787,6 +913,9 @@ def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
     print(f"{tag} repair_balance_walk launches {walk_launches}; device finishes "
           f"{finish_device} ({infeasible} with a block above L), finish_moved "
           f"{rep.engine_stats['finish_moved']}", flush=True)
+    lp_steps = sum(ev["name"] == "lp.step" for ev in tracer.events)
+    print(f"{tag} lp_chunk_step launches {step_launches} for {lp_steps} lp.step spans "
+          f"(3 a step); {block_visits} hub visits", flush=True)
 
     # where the time went, by span (spans do not nest on this path)
     groups = {}
@@ -826,12 +955,15 @@ def run_partition(torch, g, out_dir: Path, evo_engine: str) -> dict:
     if walk_launches != infeasible:
         _fail(f"{tag} {walk_launches} repair_balance_walk launches for {infeasible} "
               f"finishes with a block above L")
+    if lp_steps <= 0 or step_launches != 3 * lp_steps:
+        _fail(f"{tag} {step_launches} lp_chunk_step launches for {lp_steps} lp.step spans")
     want_engine = "host" if evo_engine == "host" else "device"
     if len(evolves) != cfg.vcycles or any(e[0] != want_engine for e in evolves):
         _fail(f"{tag} want the {want_engine} GA in all {cfg.vcycles} V-cycles, "
               f"got {evolves}")
     return dict(rep=rep, launches=launches, walk_launches=walk_launches, wall=wall,
-                evolve_s=sum(e[2] for e in evolves), evolves=evolves, finishes=fin.kept)
+                evolve_s=sum(e[2] for e in evolves), evolves=evolves, finishes=fin.kept,
+                step_launches=step_launches, lp_steps=lp_steps, sweeps=sweeps)
 
 
 # --------------------------------------------------------------------------
@@ -3960,6 +4092,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.balance import walk
     from repro_torch.kernels.lp_score import lp_score, lp_score_rows
+    from repro_torch.kernels.lp_step import chunk_step
 
     t_start = time.perf_counter()
     card = _card_line()
@@ -3970,7 +4103,7 @@ def main(argv=None) -> int:
     torch.cuda.set_device(dev)
 
     # ---- phase 1: build every kernel from the checkout's sources
-    sources = [lp_score.SOURCE, walk.SOURCE]
+    sources = [lp_score.SOURCE, walk.SOURCE, chunk_step.SOURCE]
     t = time.perf_counter()
     for src in sources:
         build.load(src)
@@ -3994,11 +4127,13 @@ def main(argv=None) -> int:
           f"{2**24}), node-weight sum {float(g.nw.sum())}", flush=True)
     runs = {evo: run_partition(torch, g, Path(args.out), evo) for evo in ("auto", "host")}
     finishes = runs["auto"].pop("finishes")
-    del runs["host"]["finishes"]
+    sweeps = runs["auto"].pop("sweeps")
+    del runs["host"]["finishes"], runs["host"]["sweeps"]
     print("device GA vs host GA: " + json.dumps({
         evo: dict(wall_s=round(r["wall"], 3), partition_s=round(r["rep"].seconds, 3),
                   cut=r["rep"].cut, evolve_s=round(r["evolve_s"], 4),
-                  launches=r["launches"], walk_launches=r["walk_launches"])
+                  launches=r["launches"], walk_launches=r["walk_launches"],
+                  step_launches=r["step_launches"], lp_steps=r["lp_steps"])
         for evo, r in runs.items()}), flush=True)
     rep = runs["auto"]["rep"]
     # the GA's generation step at full width, seeded with the run's result
@@ -4008,6 +4143,8 @@ def main(argv=None) -> int:
     m = path_lp_score_rows(torch, g, rep.labels, k=16)
     walk_m = path_repair_balance_walk(torch, g, finishes)
     del finishes
+    step_m = path_lp_chunk_step(torch, sweeps)
+    del sweeps
 
     # ---- phase 6: the dynamic serving subsystem
     t = time.perf_counter()
@@ -4125,6 +4262,17 @@ def main(argv=None) -> int:
         bound_ms=walk_m["rows"][0]["bound_ms"],
         bound_by="latency",
         inputs=walk_m["rows"],
+    ), dict(
+        name="lp_chunk_step",
+        route="cuda",
+        source="src/repro_torch/kernels/lp_step/lp_chunk_step.cu",
+        replaces="none (src/repro/core/label_propagation.py::_lp_sweep's jnp scan body)",
+        launches=runs["auto"]["step_launches"],
+        lp_steps=runs["auto"]["lp_steps"],
+        max_abs_err=0,
+        **step_m["timing"],
+        bound_by="bytes",
+        inputs=step_m["rows"],
     )]
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

@@ -7,12 +7,15 @@ Two modes (paper §III-A), as in ``repro.core.label_propagation``:
 * ``refine`` — local search.  Labels live in ``[0, k)``, ``U = L_max``, and
   nodes of an overloaded block must leave it; random traversal.
 
-:func:`lp_sweep_batched` is the chunked-sequential sweep in torch: a Python
-loop walks the chunks of a pack in order and moves the nodes of one chunk
+:func:`lp_sweep_batched` is the chunked-sequential sweep: a Python loop
+walks the chunks of a pack in order and moves the nodes of one chunk
 synchronously, for a batch of ``B`` label rows at once (row ``b`` visits
 the chunks in the order its own seed draws; the batched GA refines its
-whole population this way).  :func:`lp_sweep` is its one-row case.  Each
-row makes exactly the reference's move decisions:
+whole population this way).  :func:`lp_sweep` is its one-row case.  On the
+card each step is the hand-written kernel of :mod:`repro_torch.kernels.lp_step`;
+its plain version, :func:`lp_sweep_plain`, makes each step a chain of torch
+ops.  Each row makes exactly the reference's move decisions; in the plain
+version:
 
 * the per-chunk (node, label) run reduction sorts the fused key
   ``slot * A + cand`` with a *stable* sort (``torch.sort`` is unstable by
@@ -41,6 +44,7 @@ import torch
 from ..device import resolve_device
 from ..graph.csr import GraphNP
 from ..graph.packing import ChunkPack, pack_chunks
+from ..kernels.lp_step import ChunkStep
 from ..obs import span as _obs_span
 
 __all__ = [
@@ -49,6 +53,7 @@ __all__ = [
     "lp_refine",
     "lp_sweep",
     "lp_sweep_batched",
+    "lp_sweep_plain",
     "make_order",
     "sclap_numpy",
     "hash_mix",
@@ -138,6 +143,31 @@ def _chunk_perm(seed: int, C: int, num_chunks: int) -> np.ndarray:
     return np.argsort(hc, kind="stable")
 
 
+def _sweep_plan(seeds, num_chunks, B: int, C: int, iters: int, refine_mode: bool,
+                permute_chunks: bool, dev):
+    """Each row's chunk order and hash bases: ``(perm, base_jit,
+    base_gate)``, ``perm`` the (B, steps) numpy visit order (steps: the most
+    live chunks of a row; padded chunks last) and the bases (iters, B,
+    steps) int64 tensors on ``dev``, the row's per-iteration base plus the
+    chunk id, as the reference adds them (``base_gate`` None outside refine
+    mode)."""
+    seeds = [int(s) & _M32 for s in seeds]
+    nchunks = ([int(c) for c in num_chunks] if isinstance(num_chunks, (list, tuple))
+               else [int(num_chunks)] * B)
+    if permute_chunks:
+        perm = np.stack([_chunk_perm(s, C, nc) for s, nc in zip(seeds, nchunks)])
+    else:
+        perm = np.broadcast_to(np.arange(C), (B, C))
+    perm = np.array(perm[:, :max(nchunks)])
+
+    def bases(extra):
+        b = np.array([[hash_base_u32(s, it, extra) for s in seeds]
+                      for it in range(iters)], dtype=np.int64)
+        return torch.from_numpy((b[:, :, None] + perm[None]) & _M32).to(dev)
+
+    return perm, bases(0x51ED2701), bases(0x2545F491) if refine_mode else None
+
+
 def lp_sweep_batched(
     nodes: torch.Tensor,          # (C, N) int64, padded with n; or (B, C, N)
     node_valid: torch.Tensor,     # (C, N) bool; or (B, C, N)
@@ -162,9 +192,7 @@ def lp_sweep_batched(
     """``iters`` sweeps over the live chunks for each of ``B`` label rows;
     returns ``(labels, weights, moves)`` with ``moves`` per row (new
     tensors — the inputs are not modified).  At step ``c`` row ``b`` moves
-    the nodes of chunk ``perm_b[c]``, and every sort, reduction and scatter
-    runs along the row axis, so one step costs the same launches for the
-    whole batch.
+    the nodes of chunk ``perm_b[c]``; one step serves the whole batch.
 
     Rows share the pack, the node weights, ``U`` and the chunk count (the
     batched GA), or — when the pack tensors carry a leading row axis — each
@@ -172,15 +200,70 @@ def lp_sweep_batched(
     ``SessionGroup`` lanes: independent graphs of one shape bucket).  A row
     with fewer live chunks than the longest visits its padded chunks in the
     remaining steps, which move nothing, as under the reference's ``vmap``
-    of a loop with a per-lane trip count."""
+    of a loop with a per-lane trip count.
+
+    On CUDA tensors each step is the hand-written kernel
+    (:class:`~repro_torch.kernels.lp_step.ChunkStep`: three launches for all
+    rows, no host synchronize); other tensors take the kernel's plain
+    version, :func:`lp_sweep_plain`."""
+    if not labels.is_cuda:
+        return lp_sweep_plain(
+            nodes, node_valid, edge_dst, edge_w, edge_src_slot, edge_valid, labels, weights,
+            nw_ext, restrict, U, seeds, num_labels, num_chunks, iters=iters,
+            refine_mode=refine_mode, use_restrict=use_restrict, permute_chunks=permute_chunks,
+        )
+    dev = labels.device
+    B = labels.shape[0]
+    perm, base_jit, base_gate = _sweep_plan(seeds, num_chunks, B, nodes.shape[-2], iters,
+                                            refine_mode, permute_chunks, dev)
+    step = ChunkStep(
+        (nodes, node_valid, edge_dst, edge_w, edge_src_slot, edge_valid),
+        labels, weights, nw_ext, restrict,
+        torch.from_numpy(np.broadcast_to(np.asarray(U, np.float32), (B,)).copy()).to(dev),
+        torch.from_numpy(perm).to(dev), base_jit,
+        base_jit if base_gate is None else base_gate, int(num_labels),
+        refine_mode=refine_mode, use_restrict=use_restrict,
+    )
+    for it in range(iters):
+        for c in range(perm.shape[1]):
+            with _obs_span("lp.step"):
+                step(it, c)
+    return step.result()
+
+
+def lp_sweep_plain(
+    nodes: torch.Tensor,          # (C, N) int64, padded with n; or (B, C, N)
+    node_valid: torch.Tensor,     # (C, N) bool; or (B, C, N)
+    edge_dst: torch.Tensor,       # (C, E) int64, padded with n; or (B, C, E)
+    edge_w: torch.Tensor,         # (C, E) float32; or (B, C, E)
+    edge_src_slot: torch.Tensor,  # (C, E) int64; or (B, C, E)
+    edge_valid: torch.Tensor,     # (C, E) bool; or (B, C, E)
+    labels: torch.Tensor,         # (B, A) integer arena rows, A >= n + 1
+    weights: torch.Tensor,        # (B, W) float32; slots >= num_labels hold +inf
+    nw_ext: torch.Tensor,         # (A,) float32 node weights, 0 beyond n; or (B, A)
+    restrict: torch.Tensor,       # (A,) int32, or a (1,) dummy
+    U,                            # float, or one per row
+    seeds: Sequence[int],         # one per row: drives that row's hashes
+    num_labels: int,              # T: n in cluster mode, k in refine mode
+    num_chunks,                   # live chunks (<= C); an int, or one per row
+    *,
+    iters: int,
+    refine_mode: bool,
+    use_restrict: bool,
+    permute_chunks: bool,
+):
+    """The plain version of :func:`lp_sweep_batched`, on any device: each
+    step a chain of torch ops for all rows (the CPU's path; the card tests
+    hold the kernel to it bit for bit).  Row ``b`` makes exactly the
+    reference's move decisions (see the module docstring)."""
     dev = labels.device
     B, A = labels.shape
     C, N = nodes.shape[-2:]
     lanes = nodes.dim() == 3
     T = int(num_labels)
-    seeds = [int(s) & _M32 for s in seeds]
-    nchunks = ([int(c) for c in num_chunks] if isinstance(num_chunks, (list, tuple))
-               else [int(num_chunks)] * B)
+    perm, base_jit, base_gate = _sweep_plan(seeds, num_chunks, B, C, iters, refine_mode,
+                                            permute_chunks, dev)
+    steps = perm.shape[1]
     if isinstance(U, (list, tuple)):
         U = torch.tensor(np.asarray(U, np.float32), device=dev)[:, None]
     else:
@@ -189,27 +272,11 @@ def lp_sweep_batched(
     labels = labels.clone()
     weights = weights.clone()
     moves = torch.zeros(B, dtype=torch.int64, device=dev)
-    if permute_chunks:
-        perm = np.stack([_chunk_perm(s, C, nc) for s, nc in zip(seeds, nchunks)])
-    else:
-        perm = np.broadcast_to(np.arange(C), (B, C))
-    steps = max(nchunks)
-    perm = np.array(perm[:, :steps])
     # rows that visit one chunk of one shared pack per step read views of
     # it; otherwise each row gathers its own chunk
     shared = not lanes and bool((perm == perm[:1]).all())
     perm_t = None if shared else torch.from_numpy(perm).to(dev)
     row = torch.arange(B, device=dev)
-
-    def bases(extra):
-        """(iters, B, steps) hash bases: the row's per-iteration base plus
-        the chunk id, as the reference adds them."""
-        b = np.array([[hash_base_u32(s, it, extra) for s in seeds]
-                      for it in range(iters)], dtype=np.int64)
-        return torch.from_numpy((b[:, :, None] + perm[None]) & _M32).to(dev)
-
-    base_jit = bases(0x51ED2701)
-    base_gate = bases(0x2545F491) if refine_mode else None
     for it in range(iters):
         for c in range(steps):
             with _obs_span("lp.step"):
@@ -304,6 +371,8 @@ def lp_sweep_batched(
                 weights[:, T] = float("inf")
                 moves += moved.sum(dim=1)
     return labels, weights, moves
+
+
 
 
 def lp_sweep(

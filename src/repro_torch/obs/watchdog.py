@@ -79,6 +79,7 @@ KNOWN_JIT_SITES: Dict[str, str] = {
     # kernel load/launch sites (callers of kernels/build.py::load)
     "kernels/lp_score/lp_score.py::_lib": "kernel.build",
     "kernels/balance/walk.py::_lib": "kernel.build",
+    "kernels/lp_step/chunk_step.py::_lib": "kernel.build",
     # counterparts of the reference's jit functions
     "core/label_propagation.py::lp_sweep": "engine.sweep",
     "core/contraction.py::contract_device": "engine.contract",

@@ -19,11 +19,15 @@ import torch
 
 from _torch_finish import CASES as FINISH_CASES
 from _torch_finish import kron19_case, make_case
+from _torch_lp_step import CASES as STEP_CASES
+from _torch_lp_step import HUB_CASES
 from repro_torch.core import LPEngine, PartitionerConfig, partition, repair_balance
+from repro_torch.core.label_propagation import lp_sweep_batched
 from repro_torch.core.evolutionary import EvoConfig
 from repro_torch.core.metrics import lmax
 from repro_torch.graph import barabasi_albert, ell_pack, rmat
 from repro_torch.kernels.balance import repair_balance_walk, shared_k_limit
+from repro_torch.kernels.lp_step import ChunkStep, block_nodes, light_arcs
 from repro_torch.kernels.lp_score import (
     dense_round_device,
     dense_round_device_batched,
@@ -573,3 +577,96 @@ def test_finest_pack_gathers_match_host_packers_within_budget():
     assert Rb * TP.ELL_WIDTH * TP._ELL_SLOT_BYTES > 2 * TP.GATHER_BUDGET_BYTES
     assert peak - out_bytes <= TP.GATHER_BUDGET_BYTES, ("ell", peak, out_bytes)
     assert eng.stats.gather_builds == eng.stats.pack_builds == 3
+
+
+def _on_card(args):
+    return tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def _block_path_visits(args, iters: int) -> int:
+    """The hub visits of a sweep: each row's valid nodes with more arcs in
+    their chunk than the kernel's warp path takes, once an iteration
+    (padded chunks hold no valid node)."""
+    nodes, node_valid, _, _, slot, valid = args[:6]
+    B = args[6].shape[0]
+    if nodes.dim() == 2:
+        node_valid, slot, valid = (t.expand(B, *t.shape) for t in (node_valid, slot, valid))
+    N = nodes.shape[-1]
+    deg = torch.zeros(node_valid.shape, dtype=torch.int64)
+    deg.scatter_add_(2, slot, valid.to(torch.int64))
+    return iters * int(((deg > light_arcs()) & node_valid).sum()) if N else 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STEP_CASES))
+def test_lp_chunk_step_card_matches_plain(name):
+    """The chunk-step kernel against its plain version (the torch-ops body
+    on the CPU), labels, block weights and moves bit for bit: cluster and
+    refine mode with and without the restriction, rows of one shared pack
+    with their own chunk orders (the GA), lanes of their own packs with
+    uneven chunk counts (the repair), bucket-padded chunks, slots and arcs,
+    hubs whose arcs blocks share in pieces, and edge weights that sum alike
+    only in pack order.  Three launches a step; the hub counter counts each
+    visit of a node with more arcs than the warp path takes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args, kw = STEP_CASES[name]()
+    want = lp_sweep_batched(*args, **kw)
+    live = args[-1] if isinstance(args[-1], list) else [args[-1]]
+    before, visits = ChunkStep.launches, block_nodes()
+    got = lp_sweep_batched(*_on_card(args), **kw)
+    torch.cuda.synchronize()
+    assert ChunkStep.launches == before + 3 * kw["iters"] * max(live)
+    heavy = _block_path_visits(args, kw["iters"])
+    assert block_nodes() - visits == heavy
+    assert heavy > 0 or name not in HUB_CASES
+    for part, g, w in zip(("labels", "weights", "moves"), got, want):
+        assert g.is_cuda
+        assert torch.equal(g.cpu(), w), part
+    assert int(want[2].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_lp_chunk_step_wrapper_contract():
+    """int64 label rows run as int32 ones do; what the wrapper refuses:
+    tensors on two devices, float labels, a restriction of another dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert light_arcs() == 256
+    args, kw = STEP_CASES["cluster_restrict"]()
+    card = list(_on_card(args))
+    want = lp_sweep_batched(*card, **kw)
+    wide = list(card)
+    wide[6] = card[6].long()
+    got = lp_sweep_batched(*wide, **kw)
+    assert got[0].dtype == torch.int64
+    assert torch.equal(got[0], want[0].long()) and torch.equal(got[1], want[1])
+    mixed = list(card)
+    mixed[3] = args[3]
+    with pytest.raises(ValueError, match="one CUDA device"):
+        lp_sweep_batched(*mixed, **kw)
+    bad = list(card)
+    bad[6] = card[6].float()
+    with pytest.raises(TypeError):
+        lp_sweep_batched(*bad, **kw)
+    bad = list(card)
+    bad[9] = card[9].long()
+    with pytest.raises(ValueError, match="restriction"):
+        lp_sweep_batched(*bad, **kw)
+
+
+@pytest.mark.cuda
+def test_partition_chunk_steps_card_match_cpu():
+    """A whole ``partition()`` on rmat(17, 16): its sweeps (the levels'
+    cluster sweeps, the GA's refine sweeps) run the chunk-step kernel on
+    the card and give the CPU run's labels and cuts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = rmat(17, 16, seed=1)
+    cfg = dict(k=16, preset="fast", refine_engine="dense", seed=0, coarsest_factor=100)
+    cpu = partition(g, PartitionerConfig(**cfg), device="cpu")
+    before = ChunkStep.launches
+    card = partition(g, PartitionerConfig(**cfg), device="cuda")
+    assert ChunkStep.launches > before
+    np.testing.assert_array_equal(card.labels, cpu.labels)
+    assert card.cut == cpu.cut and card.cycle_cuts == cpu.cycle_cuts
